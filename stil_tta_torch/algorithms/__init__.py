@@ -1,0 +1,1 @@
+"""algorithms of the PyTorch port (see the package docstring)."""

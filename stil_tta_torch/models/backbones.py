@@ -1,0 +1,107 @@
+"""STiL's disentangled contrastive fusion backbone (the part of
+``stil_tta_tpu/models/backbones.py`` the test-time path uses).
+
+:class:`DisCoBackbone` (``STiLModel_backbone.py:35-165``): image tokens
+from the ResNet stage-4 map, tabular tokens, the si/ai/st/at disentangle
+projections, shared-feature reduction, MITransformer fusion, and three
+classifiers (multimodal / imaging / tabular) computing in at least
+float32. Images are NHWC; tabular rows are (B, ncat+ncon) float with the
+categorical columns first.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from stil_tta_torch.models.disentangle import MITransformerLayer
+from stil_tta_torch.models.layers import Linear, MLPHead, acc_dtype
+from stil_tta_torch.models.resnet import EMBEDDING_DIM, image_encoder
+from stil_tta_torch.models.tabular_transformer import (
+    TabularTransformerEncoder, split_field_lengths)
+
+Tensor = torch.Tensor
+
+OUTPUT_KEYS = ("out_m", "out_i", "out_t", "x_si_enhance", "x_si", "x_ai",
+               "x_st_enhance", "x_st", "x_at", "x_c")
+
+
+class DisCoBackbone(nn.Module):
+    """STiL disentangled-attention backbone. Torch keys follow the
+    reference (``encoder_imaging``, ``encoder_tabular``,
+    ``projection_{si,ai,st,at}``, ``reduce``, ``transformer.{i}``,
+    ``classifier_{multimodal,imaging,tabular}``)."""
+
+    def __init__(self, model: str, field_lengths: Sequence[int],
+                 num_classes: int, tabular_embedding_dim: int = 512,
+                 multimodal_embedding_dim: int = 512,
+                 tabular_num_layers: int = 4, multimodal_num_layers: int = 1,
+                 embedding_dropout: float = 0.0, drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cat_lengths, con_lengths = split_field_lengths(field_lengths)
+        self.encoder_imaging = image_encoder(
+            model, return_all_feature_maps=True, dtype=dtype)
+        self.encoder_tabular = TabularTransformerEncoder(
+            cat_lengths, con_lengths, embedding_dim=tabular_embedding_dim,
+            num_layers=tabular_num_layers,
+            embedding_dropout=embedding_dropout, drop_rate=drop_rate,
+            dtype=dtype)
+        hid = multimodal_embedding_dim
+        img_dim = EMBEDDING_DIM[model]
+        tab_dim = tabular_embedding_dim
+        self.projection_si = MLPHead(img_dim, hid, hid, dtype)
+        self.projection_ai = MLPHead(img_dim, hid, hid, dtype)
+        self.projection_st = MLPHead(tab_dim, hid, hid, dtype)
+        self.projection_at = MLPHead(tab_dim, hid, hid, dtype)
+        self.reduce = Linear(2 * hid, hid, dtype=dtype)
+        self.transformer = nn.ModuleList(
+            MITransformerLayer(hid, num_heads=4, mlp_ratio=1.0,
+                               qkv_bias=True, attn_drop=0.1, proj_drop=0.1,
+                               drop_path=0.1, dtype=dtype)
+            for _ in range(multimodal_num_layers))
+        head_t = acc_dtype(dtype)
+        self.classifier_multimodal = Linear(3 * hid, num_classes,
+                                            dtype=head_t)
+        self.classifier_imaging = Linear(2 * hid, num_classes, dtype=head_t)
+        self.classifier_tabular = Linear(2 * hid, num_classes, dtype=head_t)
+        self.head_dtype = head_t
+
+    def encode(self, image: Tensor, tabular: Tensor,
+               missing_mask: Optional[Tensor] = None):
+        """Disentangled features (``STiLModel_backbone.py:118-132``)."""
+        x_i = self.encoder_imaging(image)[-1]   # (B, H, W, C) view
+        b, h, w, c = x_i.shape
+        x_i = x_i.reshape(b, h * w, c)          # h-major tokens, as JAX
+        x_t = self.encoder_tabular(tabular, missing_mask)
+        return (self.projection_si(x_i), self.projection_ai(x_i.mean(1)),
+                self.projection_st(x_t[:, 1:]), self.projection_at(x_t[:, 0]))
+
+    def fuse(self, x_si, x_ai, x_st, x_at):
+        """``STiLModel_backbone.py:135-147``."""
+        x_c = self.reduce(torch.cat([x_ai, x_at], dim=1))[:, None]
+        for block in self.transformer:
+            x_si, x_st, x_c = block(x_si, x_st, x_c)
+        return x_si.mean(1), x_st.mean(1), x_c.mean(1)
+
+    def forward(self, image: Tensor, tabular: Tensor,
+                missing_mask: Optional[Tensor] = None) -> Dict[str, Tensor]:
+        """The reference's ``forward_all`` outputs
+        (``STiLModel_backbone.py:150-156``) as a dict, ``OUTPUT_KEYS``."""
+        x_si, x_ai, x_st, x_at = self.encode(image, tabular, missing_mask)
+        x_si_pool, x_st_pool = x_si.mean(1), x_st.mean(1)
+        x_si_enh, x_st_enh, x_c = self.fuse(x_si, x_ai, x_st, x_at)
+        f = lambda t: t.to(self.head_dtype)  # noqa: E731
+        return {
+            "out_m": self.classifier_multimodal(
+                f(torch.cat([x_si_enh, x_c, x_st_enh], dim=1))),
+            "out_i": self.classifier_imaging(
+                f(torch.cat([x_si_enh, x_ai], dim=1))),
+            "out_t": self.classifier_tabular(
+                f(torch.cat([x_st_enh, x_at], dim=1))),
+            "x_si_enhance": f(x_si_enh), "x_si": f(x_si_pool),
+            "x_ai": f(x_ai), "x_st_enhance": f(x_st_enh),
+            "x_st": f(x_st_pool), "x_at": f(x_at), "x_c": f(x_c),
+        }
