@@ -14,9 +14,9 @@
 //     accumulators in registers, the block reduces across its row lanes
 //     through shared memory in a fixed order, and writes one partial row
 //     per chunk to a float32 scratch of shape (chunks, 2, C).
-//   pass 2 (bn_stats_finalize_kernel): each output column sums its
-//     partials, eight lanes over interleaved chunks, then the eight lane
-//     sums in order.
+//   pass 2 (bn_reduce::column_sums_kernel, bn_reduce_common.cuh): each
+//     output column sums its partials, eight lanes over interleaved
+//     chunks, then the eight lane sums in order.
 //
 // No float atomics: every sum has a fixed order, so two runs on the same
 // input give bitwise-equal results.
@@ -30,59 +30,12 @@
 // itself cost a few microseconds, which dominate the small late-stage
 // shapes of ResNet-50.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bn_reduce_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFinalLanes = 8;
-
-// Raw: the type one thread loads per step; unpack turns it into floats.
-template <typename T, int VEC>
-struct Load;
-
-template <>
-struct Load<float, 4> {
-  using Raw = float4;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[4]) {
-    f[0] = r.x;
-    f[1] = r.y;
-    f[2] = r.z;
-    f[3] = r.w;
-  }
-};
-
-template <>
-struct Load<float, 1> {
-  using Raw = float;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[1]) {
-    f[0] = r;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 p = __bfloat1622float2(h[k]);
-      f[2 * k] = p.x;
-      f[2 * k + 1] = p.y;
-    }
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 1> {
-  using Raw = __nv_bfloat16;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[1]) {
-    f[0] = __bfloat162float(r);
-  }
-};
+using bn_reduce::kThreads;
+using bn_reduce::Load;
 
 template <typename T, int VEC>
 __device__ __forceinline__ void accumulate(
@@ -104,8 +57,6 @@ __global__ void __launch_bounds__(kThreads)
 bn_stats_partial_kernel(const T* __restrict__ x, int64_t m, int c,
                         int threads_c, int64_t rows_per_chunk,
                         float* __restrict__ partial) {
-  __shared__ float sh_sum[kThreads * VEC];
-  __shared__ float sh_sq[kThreads * VEC];
   using Raw = typename Load<T, VEC>::Raw;
 
   const int tx = threadIdx.x % threads_c;
@@ -145,50 +96,8 @@ bn_stats_partial_kernel(const T* __restrict__ x, int64_t m, int c,
     }
   }
 
-  // shared layout [ty][tile column]; tile_c * rows_per_step == kThreads*VEC
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sh_sum[ty * tile_c + tx * VEC + i] = s[i];
-    sh_sq[ty * tile_c + tx * VEC + i] = q[i];
-  }
-  __syncthreads();
-
-  for (int col = threadIdx.x; col < tile_c; col += kThreads) {
-    const int ch = blockIdx.x * tile_c + col;
-    float ts = 0.f, tq = 0.f;
-    for (int t = 0; t < rows_per_step; ++t) {
-      ts += sh_sum[t * tile_c + col];
-      tq += sh_sq[t * tile_c + col];
-    }
-    if (ch < c) {
-      float* out = partial + static_cast<int64_t>(blockIdx.y) * 2 * c;
-      out[ch] = ts;
-      out[c + ch] = tq;
-    }
-  }
-}
-
-// partial is (chunks, width) with width = 2*C; out is (width,) =
-// [sum(x) | sum(x*x)]. Block (32, kFinalLanes): 32 columns per block.
-__global__ void bn_stats_finalize_kernel(const float* __restrict__ partial,
-                                         int chunks, int width,
-                                         float* __restrict__ out) {
-  __shared__ float sh[kFinalLanes][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (col < width) {
-    for (int k = threadIdx.y; k < chunks; k += kFinalLanes) {
-      s += partial[static_cast<int64_t>(k) * width + col];
-    }
-  }
-  sh[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < width) {
-    float t = 0.f;
-#pragma unroll
-    for (int y = 0; y < kFinalLanes; ++y) t += sh[y][threadIdx.x];
-    out[col] = t;
-  }
+  bn_reduce::write_partial_row<VEC>(s, q, tx, ty, tile_c, rows_per_step, c,
+                                   partial);
 }
 
 template <typename T, int VEC>
@@ -232,9 +141,6 @@ extern "C" int bn_stats_launch(const void* x, int is_bf16, long long m,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int width = 2 * c;
-  const dim3 block(32, kFinalLanes);
-  bn_stats_finalize_kernel<<<(width + 31) / 32, block, 0, st>>>(
-      p, chunks, width, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(bn_reduce::launch_column_sums(
+      p, chunks, c, static_cast<float*>(out), st));
 }

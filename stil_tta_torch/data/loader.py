@@ -1,11 +1,13 @@
-"""Epoch sampler and device-resident dataset cache (the part of
-``stil_tta_tpu/data/loader.py`` the test-time path uses).
+"""Epoch samplers and the device-resident dataset cache (the part of
+``stil_tta_tpu/data/loader.py`` STiL uses).
 
 :class:`DeviceCache` puts a whole split on the card once (uint8 images
 are small: 2,048 DVM test images at 128² are 100 MB), so a batch is an
 index gather on the device and the host only makes index vectors.
-:class:`EpochSampler` draws the same permutations as the JAX package's
-(``np.random.RandomState``), so both see batches in the same order.
+:class:`EpochSampler` and :class:`CyclingSampler` draw the same
+permutations as the JAX package's (``np.random.RandomState``), so both see
+batches in the same order. The host-stream path for splits larger than
+device memory is not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +52,23 @@ class EpochSampler:
             yield chunk.astype(np.int32), w
 
 
+class CyclingSampler:
+    """Infinite shuffled stream for the labelled loader, which is shorter
+    than the unlabelled epoch and cycles."""
+
+    def __init__(self, n: int, batch_size: int, seed: int = 0):
+        self.sampler = EpochSampler(n, batch_size, shuffle=True,
+                                    drop_last=False, seed=seed)
+        self._it = self.sampler.epoch()
+
+    def next(self) -> tuple:
+        try:
+            return next(self._it)
+        except StopIteration:
+            self._it = self.sampler.epoch()
+            return next(self._it)
+
+
 class DeviceCache:
     """A split held on ``device``; batches are gathered there by index."""
 
@@ -71,6 +90,12 @@ class DeviceCache:
         if self.missing is not None:
             d["missing"] = self.missing
         return d
+
+
+def marginal_table(cache: dict) -> torch.Tensor:
+    """The full tabular table of a split, the corruption marginal
+    (``TabularDataset.py:63-78``)."""
+    return cache.get("marginal", cache["tabular"])
 
 
 def gather_batch(cache: dict, idx: torch.Tensor) -> dict:

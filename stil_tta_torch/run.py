@@ -1,12 +1,17 @@
 """CLI entry point of the port (the counterpart of the repo's ``run.py``).
 
     python -m stil_tta_torch.run --config-name config_dvm_STiL \
+        dataset=synthetic_dvm evaluate=True
+    python -m stil_tta_torch.run --config-name config_dvm_STiL \
         dataset=synthetic_dvm test=True tta=True tta_strategy=bn_adapt
 
-``test=True`` runs the test entry point (BN-adapt TTA, then scoring) on the
-card; ``--device cpu`` runs it on the CPU. ``checkpoint=`` takes a
-reference-layout torch ``.ckpt``. Training (``evaluate=True``) and resume
-are still to port.
+``evaluate=True`` trains (``train.evaluate.evaluate``); ``test=True`` runs
+the test entry point (BN-adapt TTA, then scoring). Both run on the card;
+``--device cpu`` runs them on the CPU. ``resume_training=True
+checkpoint=<logdir>/checkpoint_last`` resumes a training run with the
+config saved beside the checkpoint, the command line's overrides on top.
+With ``test=True``, ``checkpoint=`` takes a reference-layout torch
+``.ckpt``.
 """
 
 from __future__ import annotations
@@ -31,17 +36,22 @@ def main(argv=None) -> int:
     cfg = load_config(args.config_name, overrides=args.overrides,
                       config_dir=args.config_dir)
     if cfg.resume_training and cfg.checkpoint:
-        raise NotImplementedError("resume_training is not ported to "
-                                  "stil_tta_torch yet (ROADMAP.md)")
-    if not cfg.test:
-        if cfg.evaluate:
-            raise NotImplementedError(
-                "evaluate=True (training) is not ported to stil_tta_torch "
-                "yet: it is the next slice of ROADMAP.md")
-        raise SystemExit("Set test=True")
+        # the snapshot's config (``run.py:48-63``), then the command
+        # line's overrides on top
+        from stil_tta_torch.config.loader import Config, parse_overrides
+        from stil_tta_torch.train.checkpoint import load_checkpoint_config
+        ckpt = Path(cfg.checkpoint)
+        saved = Config._wrap(load_checkpoint_config(ckpt.parent,
+                                                    name=ckpt.name))
+        for key, value in parse_overrides(args.overrides):
+            saved.set_dotted(key, value)
+        saved["resume_training"] = True
+        saved["checkpoint"] = cfg.checkpoint
+        cfg = saved
+    if not (cfg.test or cfg.evaluate):
+        raise SystemExit("Set evaluate=True or test=True")
     np.random.seed(int(cfg.seed or 0))
 
-    from stil_tta_torch.train.test import test
     seeds = [int(cfg.seed or 0)]
     if cfg.run_all_seeds and cfg.seeds:
         seeds = [int(s) for s in cfg.seeds]
@@ -54,7 +64,12 @@ def main(argv=None) -> int:
         run_cfg.logdir = (f"{base_logdir}_{seed}" if base_logdir
                           and len(seeds) > 1
                           else base_logdir or str(Path("runs") / run_name))
-        results = test(run_cfg, device=args.device)
+        if run_cfg.test:
+            from stil_tta_torch.train.test import test
+            results = test(run_cfg, device=args.device)
+        else:
+            from stil_tta_torch.train.evaluate import evaluate
+            results = evaluate(run_cfg, device=args.device)
         print({"seed": seed, **results})
         all_results.append(results)
 

@@ -1,4 +1,5 @@
-"""JAX variable tree -> reference-layout torch ``state_dict``.
+"""JAX variable tree -> reference-layout torch ``state_dict``, and a JAX
+``STiLState`` -> the port's train state.
 
 The port's own copy of the non-SAINT path of
 ``stil_tta_tpu/train/convert.py:export_torch_state_dict`` and its key
@@ -134,3 +135,43 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     ``load_state_dict(strict=True)`` on the port's modules."""
     return {k: torch.from_numpy(np.array(v))
             for k, v in export_state_dict(params, batch_stats).items()}
+
+
+def train_state_from_jax(jax_state) -> Dict[str, object]:
+    """The parts of a JAX ``STiLState`` a port train state holds, as
+    torch tensors: ``net`` (params and batch_stats, ``state_dict`` of
+    ``STiLNet``), ``ema`` (the EMA backbone's ``ema_params`` /
+    ``ema_batch_stats``, ``state_dict`` of ``DisCoBackbone``, or None),
+    ``prototypes``, ``prototypes_sum``, ``prototypes_count`` and ``da``
+    (``(queue, ptr)`` or None). Optimizer moments are not carried."""
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    out = {"net": state_dict_from_jax(jax_state.params,
+                                      jax_state.batch_stats), "ema": None}
+    if jax_state.ema_params is not None:
+        ema = state_dict_from_jax({"backbone": jax_state.ema_params},
+                                  {"backbone": jax_state.ema_batch_stats})
+        out["ema"] = {k[len("model."):]: v for k, v in ema.items()}
+    for k in ("prototypes", "prototypes_sum", "prototypes_count"):
+        out[k] = t(getattr(jax_state, k))
+    da = jax_state.da
+    out["da"] = None if da is None else (t(da.queue), int(np.asarray(da.ptr)))
+    return out
+
+
+def load_train_state(state, carried: Dict[str, object]) -> None:
+    """Load :func:`train_state_from_jax`'s output into a port
+    ``STiLState`` in place, strictly, keeping each tensor's dtype and
+    device."""
+    from stil_tta_torch.algorithms.base import DAState
+    state.net.load_state_dict(carried["net"], strict=True)
+    if state.ema is not None:
+        state.ema.load_state_dict(carried["ema"], strict=True)
+    for k in ("prototypes", "prototypes_sum", "prototypes_count"):
+        old = getattr(state, k)
+        setattr(state, k, carried[k].to(dtype=old.dtype, device=old.device))
+    if state.da is not None:
+        queue, ptr = carried["da"]
+        state.da = DAState(queue.to(dtype=state.da.queue.dtype,
+                                    device=state.da.queue.device), ptr)

@@ -22,9 +22,9 @@ class MetricLogger:
         self.echo = echo
         self.latest: Dict[str, float] = {}
 
-    def log(self, metrics: Dict[str, float], step: Optional[int] = None
-            ) -> None:
-        record = {k: (float(v) if hasattr(v, "__float__") else v)
+    def log(self, metrics: Dict[str, float], step: Optional[int] = None,
+            prefix: str = "") -> None:
+        record = {f"{prefix}{k}": (float(v) if hasattr(v, "__float__") else v)
                   for k, v in metrics.items()}
         self.latest.update(record)
         record["_step"] = step

@@ -279,4 +279,6 @@ def test_port_imports_no_jax_jax_package_or_triton():
                          text=True, check=True,
                          cwd=Path(stil_tta_torch.__file__).parents[1])
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+    # 38 modules: slice 1's and slice 2's (algorithms.base, data.corrupt,
+    # losses.prototype_loss, ops.metrics, train.checkpoint, train.optim)
+    assert int(n) >= 38 and bad.strip() == "[]", out.stdout

@@ -193,9 +193,11 @@ def test_unported_strategies_raise_and_change_nothing(reference, strategy):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="tta_strategy"):
         adapt(_cfg(load_config, tta_strategy="tentt"), None, {})
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # training is ported; its unported options raise before any data loads
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_main(["--config-name", "config_dvm_STiL", "--device", "cpu",
-                   "dataset=synthetic_dvm", "evaluate=True", "test=False"])
+                   "dataset=synthetic_dvm", "evaluate=True", "test=False",
+                   "host_stream=true"])
     cfg = _cfg(load_config, missing_tabular=True)
     with pytest.raises(NotImplementedError, match="missing_tabular"):
         load_test_split(cfg)
