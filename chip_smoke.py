@@ -7,8 +7,9 @@ Run from the root of the repository. It needs a CUDA card and fails
 without one; it never runs on the CPU. Phases, each fatal on failure:
 
 1. Device: name, count, and ``nvidia-smi`` name and power limit.
-2. Build: ``csrc/bn_stats.cu`` and ``csrc/bn_bwd_reduce.cu`` with ``nvcc``
-   for sm_90a, both compilers started together; build time and each
+2. Build: ``csrc/bn_stats.cu``, ``csrc/bn_bwd_reduce.cu``,
+   ``csrc/conv_chain.cu`` and ``csrc/conv_bwd_join.cu`` with ``nvcc`` for
+   sm_90a, all compilers started together; build time and each
    compiler's register / shared-memory / spill report.
 3. Kernels against plain: ``bn_stats`` and ``bn_bwd_reduce`` against
    their plain versions at every distinct (M, C) of ResNet-50's
@@ -43,6 +44,19 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    (``torch.batch_norm_stats``, ``torch.batch_norm_backward_reduce``;
    never called by the port), with the L2 cache flushed before every
    launch.
+10. TTA strategies at full width: ``test()`` with ``tta_strategy`` tent,
+    eata and sar on the configuration of phase 4, each with its metrics,
+    wall time and ``bn_stats`` launches (53 x 4, the stats phase); then
+    ``adapt`` alone on fresh weights, with what it ran (steps, samples
+    the filters kept, SAR's resets), its wall time, and a check that only
+    the BatchNorm affine parameters and running statistics changed.
+11. The conv+BN probe (``stil_tta_torch.tools.bench_conv_probe``) at
+    M = 524,288, K = 256, N = 64, NJ = 256: ``conv_chain``,
+    ``conv_chain_scratch`` and ``conv_bwd_join`` against their plain
+    versions at that M and at a ragged M, two launches bitwise equal;
+    then the probe's entry point (its own check, and every variant's
+    slope time against the bound), and the plain versions' times and the
+    join's GEMM timed the same way.
 
 Float32 convolutions and matmuls run in full float32 here (TF32 off), so
 float32 comparisons are not blurred by TF32 rounding. The second-to-last
@@ -70,7 +84,15 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH, IMG = 512, 128
 TOL = 1e-5                  # relative, of float32 sums over the same data
 FN_TOL = 1e-2               # of max|dx|: one bfloat16 rounding is 2^-8
-KERNELS = ("bn_stats", "bn_bwd_reduce")
+SOURCES = ("bn_stats", "bn_bwd_reduce", "conv_chain", "conv_bwd_join")
+TEST_OVERRIDES = ["dataset=synthetic_dvm", "num_classes=286",
+                  "synthetic_test=2048", "batch_size=512", "test=True",
+                  "tta=True", "enable_progress_bar=false"]
+# with random weights the head's entropies lie near ln 286, beyond the
+# default margin (0.4 ln 286): at 1.0 EATA's and SAR's filters keep
+# samples and their steps do work
+TTA_MARGIN = "tta_e_margin_scale=1.0"
+RAGGED = 29                 # rows the probe's ragged check leaves out
 TRAIN_OVERRIDES = [
     "dataset=synthetic_dvm", "num_classes=286", "batch_size=512",
     "synthetic_labelled=512", "synthetic_unlabelled=3584",
@@ -448,6 +470,138 @@ def profile_train_step(state, step, batch) -> dict:
     return out
 
 
+def tta_strategies_full_width() -> None:
+    """Phase 10: ``test()`` with Tent, EATA and SAR at full width, then
+    ``adapt`` alone on fresh weights to see what it ran and changed."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.ops.batch_norm import bn_stats
+    from stil_tta_torch.train.test import build_algo, load_test_split, test
+    from stil_tta_torch.tta import adapt
+    from stil_tta_torch.tta.tent import bn_parameters
+    for strategy in ("tent", "eata", "sar"):
+        cfg = load_config("config_dvm_STiL", TEST_OVERRIDES + [
+            f"tta_strategy={strategy}", TTA_MARGIN,
+            f"logdir=runs/chip_smoke_{strategy}"])
+        torch.cuda.synchronize()
+        bn_stats.launches = 0
+        t0 = time.perf_counter()
+        metrics = test(cfg.copy(), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bn_stats.launches
+        batches = math.ceil(int(cfg.synthetic_test) / int(cfg.batch_size))
+        log(f"[tta] {strategy}: metrics {json.dumps(metrics)}; test() "
+            f"{wall:.3f} s (data synthesis, weight init, adaptation, "
+            f"scoring); bn_stats launches {launches} (53 x {batches})")
+        if launches != 53 * batches:
+            raise SystemExit(f"{strategy}: bn_stats launch count off the "
+                             "stats phase")
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in metrics.values()):
+            raise SystemExit(f"{strategy}: bad test metrics {metrics}")
+
+        src = load_test_split(cfg)
+        algo = build_algo(cfg, src.field_lengths, "cuda")
+        cache = DeviceCache(src, device="cuda").as_dict()
+        before = {k: v.detach().clone()
+                  for k, v in algo.net.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = adapt(cfg, algo, cache)
+        torch.cuda.synchronize()
+        t_adapt = time.perf_counter() - t0
+        bn_names = {k for k, _ in bn_parameters(algo.net)}
+        stats = ("running_mean", "running_var", "num_batches_tracked")
+        after = algo.net.state_dict()
+        changed = {k for k, v in after.items()
+                   if not torch.equal(v, before[k])}
+        stray = sorted(k for k in changed
+                       if k not in bn_names and not k.endswith(stats))
+        moved = max(float((after[k] - before[k]).abs().max())
+                    for k in bn_names)
+        log(f"[tta] {strategy}: adapt {t_adapt * 1e3:.1f} ms, {counts}; "
+            f"{len(changed & bn_names)} of {len(bn_names)} BN affine "
+            f"tensors changed, largest move {moved:.3e} "
+            f"(lr {float(cfg.tta_lr):.0e}); other parameters changed: "
+            f"{stray or 'none'}")
+        if stray or not math.isfinite(moved):
+            raise SystemExit(f"{strategy}: adaptation changed {stray}")
+        if counts.get("selected", 1) == 0 or moved == 0.0:
+            raise SystemExit(f"{strategy}: the adaptation did no work")
+        del algo, cache, src
+
+
+def probe_phase() -> list:
+    """Phase 11: the probe's kernels against their plain versions, then
+    its entry point with the launch counts read around it; returns the
+    record rows of the three kernels."""
+    from stil_tta_torch.ops.conv_chain import (conv_bwd_join, conv_chain,
+                                               conv_chain_scratch)
+    from stil_tta_torch.tools import bench_conv_probe as probe
+    t0 = time.perf_counter()
+    chain_in = probe.make_inputs("cuda")
+    join_in = probe.make_join_inputs("cuda")
+    log(f"[probe] inputs M={probe.M} K={probe.K} N={probe.N} "
+        f"NJ={probe.NJ} (numpy RandomState, seeds 0 and 1) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    max_abs = collections.defaultdict(float)
+    m_r = probe.M - RAGGED
+    for name in probe.KERNELS:
+        inputs = join_in if name == "conv_bwd_join" else chain_in
+        ragged = tuple(t[:m_r] if t.dim() == 2 and t.shape[0] == probe.M
+                       else t for t in inputs)
+        for m, args in ((probe.M, inputs), (m_r, ragged)):
+            check = probe.check_kernel(name, args)
+            log(f"[probe] {name} M={m:,d} vs plain: {json.dumps(check)} "
+                f"(tol: at most {probe.ULP_SHARE:.0e} of outputs differ, "
+                f"each by <= {check['ulp_limit']} ulp; sums "
+                f"{probe.SUM_TOL:.0e} of sum|.|)")
+            if not probe.passes(check):
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"at M={m}")
+            max_abs[name] = max(max_abs[name], check["max_abs_err"])
+
+    kernels = {"conv_chain": conv_chain,
+               "conv_chain_scratch": conv_chain_scratch,
+               "conv_bwd_join": conv_bwd_join}
+    for fn in kernels.values():
+        fn.launches = 0
+    result = probe.run(chain_in, join_in,
+                       log=lambda line: log(f"[probe] {line}"))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"[probe] launches in the probe's run {launches}")
+    if min(launches.values()) == 0:
+        raise SystemExit("a probe kernel was not launched by the probe")
+
+    dy_up, w1 = join_in[:2]
+    plain_ms = {name: probe.measure(
+        lambda fn=plain, a=(join_in if name == "conv_bwd_join"
+                            else chain_in): fn(*a))
+        for name, (_, plain) in probe.KERNELS.items()}
+    gemm_join = probe.measure(lambda: torch.matmul(dy_up, w1.T))
+    ms = result["ms"]
+    log(f"[probe] plain versions {json.dumps(plain_ms)} ms; join GEMM "
+        f"torch.matmul(dy_up, w1.T) {gemm_join:.4f} ms")
+    rows = []
+    for name, variant, lib, line in (
+            ("conv_chain", "pallas_chain", ms["gemm"], 100),
+            ("conv_chain_scratch", "pallas_chain_scratch", ms["gemm"], 165),
+            ("conv_bwd_join", "pallas_bwd_join", gemm_join, 277)):
+        source = "conv_bwd_join" if name == "conv_bwd_join" else "conv_chain"
+        bound, by = result["bounds"]["join" if "join" in name else "chain"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"stil_tta_torch/csrc/{source}.cu",
+            "replaces": f"tools/bench_conv_probe.py:{line}",
+            "launches": launches[name], "max_abs_err": max_abs[name],
+            "ms": ms[variant], "plain_ms": plain_ms[name],
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "library_call": "torch.matmul of the same product: GEMM only, "
+                            "not the same function"})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -472,11 +626,11 @@ def main() -> int:
     # ---- 2. build, one nvcc for each source, all started together
     from stil_tta_torch.ops import cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(cuda_build.build, KERNELS))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(cuda_build.build, SOURCES))
     build_s = time.perf_counter() - t0
-    for name, lib in zip(KERNELS, libs):
-        log(f"[build] {lib.name} (both built in {build_s:.2f} s)")
+    for name, lib in zip(SOURCES, libs):
+        log(f"[build] {lib.name} (all built in {build_s:.2f} s)")
         for line in cuda_build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -518,11 +672,8 @@ def main() -> int:
     from stil_tta_torch.data.loader import DeviceCache
     from stil_tta_torch.train.test import build_algo, load_test_split, test
     from stil_tta_torch.tta import adapt
-    overrides = ["dataset=synthetic_dvm", "num_classes=286",
-                 "synthetic_test=2048", "batch_size=512", "test=True",
-                 "tta=True", "tta_strategy=bn_adapt",
-                 "enable_progress_bar=false",
-                 "logdir=runs/chip_smoke"]
+    overrides = TEST_OVERRIDES + ["tta_strategy=bn_adapt",
+                                  "logdir=runs/chip_smoke"]
     cfg = load_config("config_dvm_STiL", overrides)
     log(f"[slice] {cfg.model} img {cfg.img_size} tabular "
         f"{cfg.tabular_transformer_num_layers}x{cfg.tabular_embedding_dim} "
@@ -726,6 +877,13 @@ def main() -> int:
         f"batch_norm_backward_reduce {tot_b['library_ms']:.4f} ms")
     log(f"[time] launches: BN-adapt slice bn_stats {adapt_launches}; "
         f"training {launches} (the record's counts)")
+    del buf
+
+    # ---- 10. TTA strategies at full width
+    tta_strategies_full_width()
+
+    # ---- 11. the conv+BN probe
+    probe_rows = probe_phase()
 
     log(smi)
     log(json.dumps({"kernels": [{
@@ -742,7 +900,7 @@ def main() -> int:
         "launches": launches["bn_bwd_reduce"], "max_abs_err": max_abs_bwd,
         "ms": tot_b["ms"], "plain_ms": tot_b["plain_ms"],
         "bound_ms": tot_b["bound_ms"], "bound_by": bound_by_b,
-        "library_ms": tot_b["library_ms"]}]}))
+        "library_ms": tot_b["library_ms"]}] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -43,6 +43,7 @@ from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_compute, accuracy_init,
                                         accuracy_update, auroc_compute,
                                         auroc_init, auroc_update)
+from stil_tta_torch.train import optim
 from stil_tta_torch.train.optim import build_optimizer
 
 Tensor = torch.Tensor
@@ -444,14 +445,7 @@ class STiL:
                                           state.prototypes, use_pseudo)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
-            for group in state.optimizer.param_groups:
-                for p in group["params"]:
-                    # a parameter the loss does not reach gets a zero
-                    # gradient, as under jax.grad: Adam then still decays
-                    # its moments and applies weight decay to it
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-            state.optimizer.step()
+            optim.step(state.optimizer)
 
             with torch.no_grad():
                 # prototype sums from the teacher's features, labelled

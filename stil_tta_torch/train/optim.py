@@ -36,6 +36,17 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                             weight_decay=weight_decay)
 
 
+def step(opt: torch.optim.Optimizer) -> None:
+    """``opt.step()`` where a parameter the loss did not reach takes a zero
+    gradient, as under ``jax.grad``: Adam then still decays its moments,
+    moves it by them and applies weight decay to it."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    opt.step()
+
+
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
         group["lr"] = lr

@@ -181,10 +181,13 @@ def test_serve_cli_scores_a_split(reference, tmp_path):
 
 @pytest.mark.parametrize("strategy", ["tent", "eata", "sar"])
 def test_unported_strategies_raise_and_change_nothing(reference, strategy):
+    """Every strategy is ported (``tests/test_torch_tta.py``); names are
+    matched exactly, as in the JAX package, so one spelled otherwise is
+    no strategy and raises before anything of the net changes."""
     cfg, _, algo, cache = _port_algo(reference)
-    cfg.tta_strategy = strategy
+    cfg.tta_strategy = strategy.upper()
     before = {k: v.clone() for k, v in algo.net.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tta_strategy"):
         adapt(cfg, algo, cache)
     for k, v in algo.net.state_dict().items():
         assert torch.equal(v, before[k]), k
