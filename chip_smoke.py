@@ -55,8 +55,10 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     ``conv_chain_scratch`` and ``conv_bwd_join`` against their plain
     versions at that M and at a ragged M, two launches bitwise equal;
     then the probe's entry point (its own check, and every variant's
-    slope time against the bound), and the plain versions' times and the
-    join's GEMM timed the same way.
+    slope time against the bound), the plain versions' times and the
+    join's GEMM timed the same way, and each kernel's time and share of
+    its bound beside its registers, shared memory and spills (the
+    ``-Xptxas -v`` report) and its shared-memory plan.
 
 Float32 convolutions and matmuls run in full float32 here (TF32 off), so
 float32 comparisons are not blurred by TF32 rounding. The second-to-last
@@ -532,6 +534,19 @@ def tta_strategies_full_width() -> None:
         del algo, cache, src
 
 
+def ptxas_report(source: str) -> dict:
+    """Registers, shared memory and spills of each kernel entry of a built
+    source, from its ``-Xptxas -v`` report: {mangled name: summary}."""
+    from stil_tta_torch.ops import cuda_build
+    report, entry = {}, None
+    for line in cuda_build.build_log(source).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("spill" in line or "Used" in line):
+            report[entry] = f"{report.get(entry, '')} {line.strip()}".strip()
+    return report
+
+
 def probe_phase() -> list:
     """Phase 11: the probe's kernels against their plain versions, then
     its entry point with the launch counts read around it; returns the
@@ -583,6 +598,13 @@ def probe_phase() -> list:
     ms = result["ms"]
     log(f"[probe] plain versions {json.dumps(plain_ms)} ms; join GEMM "
         f"torch.matmul(dy_up, w1.T) {gemm_join:.4f} ms")
+    from stil_tta_torch.ops.conv_chain import _plan
+    plans = {"conv_chain": _plan(probe.K, probe.N),
+             "conv_bwd_join": _plan(probe.N, probe.NJ, join=True)}
+    # the kernel entries: conv_chain_kernel<false>, <true>, the join's
+    entries = {"conv_chain": "conv_chain_kernelILb0",
+               "conv_chain_scratch": "conv_chain_kernelILb1",
+               "conv_bwd_join": "conv_bwd_join_kernel"}
     rows = []
     for name, variant, lib, line in (
             ("conv_chain", "pallas_chain", ms["gemm"], 100),
@@ -590,6 +612,15 @@ def probe_phase() -> list:
             ("conv_bwd_join", "pallas_bwd_join", gemm_join, 277)):
         source = "conv_bwd_join" if name == "conv_bwd_join" else "conv_chain"
         bound, by = result["bounds"]["join" if "join" in name else "chain"]
+        ptxas = [v for k, v in ptxas_report(source).items()
+                 if entries[name] in k]
+        plan = plans[source]
+        log(f"[probe] {name}: {ms[variant]:.4f} ms, {bound / ms[variant]:.1%}"
+            f" of the {bound:.4f} ms bound; ptxas: {' | '.join(ptxas)}; "
+            f"dynamic shared memory {plan['smem']:,d} bytes, "
+            f"{plan['stages']} stages of {plan['stage_bytes']:,d}")
+        if not ptxas:
+            raise SystemExit(f"no ptxas report for {name}")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"stil_tta_torch/csrc/{source}.cu",

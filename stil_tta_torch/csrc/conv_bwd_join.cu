@@ -13,22 +13,25 @@
 // here each persistent block keeps its own (conv_chain_common.cuh) and a
 // second pass adds the blocks' rows in a fixed order.
 //
-// Per tile of kRows rows the block stages dy_up in padded shared memory
-// (rows past M are zero); w1, (NJ, N) row-major, sits in shared memory for
-// the block's life and is read as the column-major (N, NJ) right operand.
-// Each warp multiplies its 16 rows by it with bf16 wmma products
-// accumulated in float32; for each 16x16 result the epilogue reads the
-// matching dy_res and x_raw values (bfloat16 pairs, 32 contiguous bytes a
-// row), forms dy, stores it and adds the three sums.
-//
 // Bound: device-memory bandwidth. At the probe's shape (M = 524,288,
 // N = 64, NJ = 256) the kernel must read dy_up (67.1 MB), dy_res and
 // x_raw (268.4 MB each) and write dy (268.4 MB): 872.4 MB, 0.2604 ms at
-// 3.35 TB/s, against 17.18 GFLOP, 0.0174 ms at 989 TFLOP/s bf16. The
-// design reads each input once and keeps dx out of device memory. It is
-// the simple first version: the epilogue's loads are 4 bytes a lane and
-// not overlapped with the products beyond what other blocks on the SM
-// give.
+// 3.35 TB/s, against 17.18 GFLOP, 0.0174 ms at 989 TFLOP/s bf16.
+//
+// Design (conv_chain_common.cuh has the shared machinery): one block an
+// SM; its producer warp brings in, with TMA, each 64-row tile's dy_up
+// (N / 64 boxes), dy_res and x_raw (NJ / 64 boxes each: 72 KB a stage at
+// the probe's shape, so two stages fit beside the 32 KB weight), and two
+// consumer warpgroups take the block's tiles in turn. For each 64-column
+// chunk of NJ a consumer multiplies the dy_up tile by the resident w1
+// (already K-major: (NJ, N) row-major) with wgmma from shared memory,
+// then reads the chunk's dy_res and x_raw from the stage, forms dy, writes
+// it over dy_res in place and takes the three sums from registers. One
+// TMA store per chunk writes dy, and the stage goes back to the producer
+// once the stores have read it. Against the first version, whose
+// epilogue read dy_res and x_raw from device memory 4 bytes a lane with
+// nothing in flight during the products (31% of the bound), every input
+// now arrives by TMA ahead of its use and every output leaves by TMA.
 
 #include "conv_chain_common.cuh"
 
@@ -36,131 +39,185 @@ namespace {
 
 using namespace conv_chain_common;
 
-size_t join_smem(int nj, int n) {
-  return sizeof(float) * (kWarps * kStage + nj + kWarps * 3 * nj) +
-         sizeof(bf16) * (static_cast<size_t>(nj) * (n + kPad) +
-                         static_cast<size_t>(kRows) * (n + kPad));
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv_bwd_join_kernel(const bf16* __restrict__ dy_up,
+bool join_plan(int nj, int n, Plan* p) {
+  const int kb = (n + kBox - 1) / kBox, nb = (nj + kBox - 1) / kBox;
+  if (nb > kMaxChunks) return false;
+  return make_plan(kb + 2 * nb, kb * nb, nb * kBox * sizeof(float), p);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bwd_join_kernel(const __grid_constant__ CUtensorMap up_map,
+                     const __grid_constant__ CUtensorMap res_map,
+                     const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap dy_map,
                      const bf16* __restrict__ w1,
-                     const bf16* __restrict__ dy_res,
-                     const bf16* __restrict__ x_raw,
                      const float* __restrict__ mu_in, int64_t m, int nj, int n,
-                     bf16* __restrict__ dy, float* __restrict__ partial) {
-  // layout: staging squares | w1 (nj, n + kPad) | dy_up tile (kRows,
-  // n + kPad) | mu | per-warp sums (kWarps, 3 nj); each piece starts on a
-  // 32-byte boundary as wmma needs (n and nj are multiples of 16)
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = n + kPad;
-  float* stage = reinterpret_cast<float*>(smem);
-  bf16* sw = reinterpret_cast<bf16*>(stage + kWarps * kStage);
-  bf16* su = sw + nj * ld;
-  float* smu = reinterpret_cast<float*>(su + kRows * ld);
-  float* acc = smu + nj;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int cp = lane % 8, rg = lane / 8;
-  float* my_stage = stage + warp * kStage;
-  float* my_acc = acc + warp * 3 * nj;
+                     int stages, float* __restrict__ partial) {
+  // layout: stages (kb boxes of dy_up, nb of dy_res then dy, nb of x_raw)
+  // | w1 (kb boxes of nb * 64 rows) | mu | full and empty barriers
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int kb = (n + kBox - 1) / kBox, nb = (nj + kBox - 1) / kBox;
+  const int stage_bytes = (kb + 2 * nb) * kBoxBytes;
+  uint8_t* sw = ring + stages * stage_bytes;
+  float* smu = reinterpret_cast<float*>(sw + kb * nb * kBoxBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smu + nb * kBox);
+  uint64_t* empty = full + kMaxStages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  copy_to_shared(sw, ld, w1, nj, n);
-  for (int i = threadIdx.x; i < nj; i += kThreads) smu[i] = mu_in[i];
-  for (int i = threadIdx.x; i < kWarps * 3 * nj; i += kThreads) acc[i] = 0.f;
-
-  const int units_per_row = n / 8;
-  const int units = kRows * units_per_row;
-  const uint4* up4 = reinterpret_cast<const uint4*>(dy_up);
-  const int64_t tiles = (m + kRows - 1) / kRows;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t row0 = tile * kRows;
-    __syncthreads();  // the previous tile's dy_up is consumed
-    for (int u = threadIdx.x; u < units; u += kThreads) {
-      const int r = u / units_per_row, c = (u % units_per_row) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < m)
-        v = __ldg(up4 + (row0 + r) * units_per_row + u % units_per_row);
-      *reinterpret_cast<uint4*>(su + r * ld + c) = v;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  fill_weight(sw, w1, n, nj, kb, nb, true, tid, kThreads);
+  for (int i = tid; i < nb * kBox; i += kThreads)
+    smu[i] = i < nj ? mu_in[i] : 0.f;
+  fence_async_smem();
+  __syncthreads();
 
-    const int64_t strip0 = row0 + warp * 16;
-    strip_product<false>(
-        su + warp * 16 * ld, ld, sw, ld, n, nj, my_stage, [&](int col) {
-          const int c = col + 2 * cp;
-          const float mu0 = smu[c], mu1 = smu[c + 1];
-          float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f}, s3[2] = {0.f, 0.f};
+  const int64_t tiles = (m + kRows - 1) / kRows;
+  if (warp == kConsumers * 4) {  // the producer warp
+    if (lane == 0) {
+      int i = 0;
+      for (int64_t tile = blockIdx.x; tile < tiles;
+           tile += gridDim.x, ++i) {
+        const int s = i % stages;
+        uint8_t* st = ring + s * stage_bytes;
+        const int row0 = static_cast<int>(tile * kRows);
+        mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], stage_bytes);
+        load_boxes(&up_map, kb, st, row0, &full[s]);
+        load_boxes(&res_map, nb, st + kb * kBoxBytes, row0, &full[s]);
+        load_boxes(&x_map, nb, st + (kb + nb) * kBoxBytes, row0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, t = tid % 128, w4 = warp % 4;
+  float run[kMaxChunks][3][2] = {};
+  int i = wg;
+  for (int64_t tile = blockIdx.x + wg * gridDim.x; tile < tiles;
+       tile += kConsumers * gridDim.x, i += kConsumers) {
+    const int s = i % stages;
+    uint8_t* st = ring + s * stage_bytes;
+    mbar_wait(&full[s], (i / stages) & 1);
+
+    const int64_t row0 = tile * kRows;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = rg + 4 * i;
-            const int64_t row = strip0 + r;
-            if (row < m) {
-              const int64_t at = row * nj + c;
-              const float2 res = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(dy_res + at));
-              const float2 xr = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(x_raw + at));
-              const float2 v = *reinterpret_cast<const float2*>(
-                  my_stage + r * 16 + 2 * cp);
-              const float2 dx = __bfloat1622float2(
-                  __floats2bfloat162_rn(v.x, v.y));
-              const float xc0 = __fsub_rn(xr.x, mu0);
-              const float xc1 = __fsub_rn(xr.y, mu1);
-              float d0 = round_bf16(__fadd_rn(dx.x, res.x));
-              float d1 = round_bf16(__fadd_rn(dx.y, res.y));
-              d0 = xc0 > 0.f ? d0 : 0.f;
-              d1 = xc1 > 0.f ? d1 : 0.f;
-              *reinterpret_cast<__nv_bfloat162*>(dy + at) =
-                  __floats2bfloat162_rn(d0, d1);
-              s1[0] += d0;
-              s1[1] += d1;
-              s2[0] = fmaf(d0, xc0, s2[0]);
-              s2[1] = fmaf(d1, xc1, s2[1]);
-              s3[0] = fmaf(d0, d0, s3[0]);
-              s3[1] = fmaf(d1, d1, s3[1]);
+    for (int c = 0; c < kMaxChunks; ++c) {
+      if (c < nb) {  // not `break`: run[c] must stay in registers
+        float d[32];
+        product(d, st, sw, nb * kBoxBytes, c, kb);
+        uint8_t* res = st + (kb + c) * kBoxBytes;
+        const uint8_t* xr = st + (kb + nb + c) * kBoxBytes;
+        // column group j: dy of both rows stored over dy_res, their sums in
+        // v[sum][col]
+        auto group = [&](int j, float (&v)[3][2]) {
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 mu =
+              *reinterpret_cast<const float2*>(smu + c * kBox + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i0 = 4 * j + 2 * h;
+            const int r = 16 * w4 + 8 * h + (lane >> 2);
+            __nv_bfloat162* rp =
+                reinterpret_cast<__nv_bfloat162*>(res + swz(r, col));
+            const float2 rv = __bfloat1622float2(*rp);
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(xr + swz(r, col)));
+            const float2 dx =
+                __bfloat1622float2(__floats2bfloat162_rn(d[i0], d[i0 + 1]));
+            const float xc0 = __fsub_rn(xv.x, mu.x);
+            const float xc1 = __fsub_rn(xv.y, mu.y);
+            float d0 = round_bf16(__fadd_rn(dx.x, rv.x));
+            float d1 = round_bf16(__fadd_rn(dx.y, rv.y));
+            d0 = xc0 > 0.f ? d0 : 0.f;
+            d1 = xc1 > 0.f ? d1 : 0.f;
+            *rp = __floats2bfloat162_rn(d0, d1);
+            if (row0 + r >= m) d0 = d1 = 0.f;
+            if (h == 0) {
+              v[0][0] = d0;
+              v[0][1] = d1;
+              v[1][0] = d0 * xc0;
+              v[1][1] = d1 * xc1;
+              v[2][0] = d0 * d0;
+              v[2][1] = d1 * d1;
+            } else {
+              v[0][0] += d0;
+              v[0][1] += d1;
+              v[1][0] = fmaf(d0, xc0, v[1][0]);
+              v[1][1] = fmaf(d1, xc1, v[1][1]);
+              v[2][0] = fmaf(d0, d0, v[2][0]);
+              v[2][1] = fmaf(d1, d1, v[2][1]);
             }
           }
+        };
+        float u[3][2][4];
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            s1[q] = sum_row_groups(s1[q]);
-            s2[q] = sum_row_groups(s2[q]);
-            s3[q] = sum_row_groups(s3[q]);
-          }
-          if (lane < 8) {
-            my_acc[c] += s1[0];
-            my_acc[c + 1] += s1[1];
-            my_acc[nj + c] += s2[0];
-            my_acc[nj + c + 1] += s2[1];
-            my_acc[2 * nj + c] += s3[0];
-            my_acc[2 * nj + c + 1] += s3[1];
-          }
-        });
+        for (int k4 = 0; k4 < 4; ++k4) {
+          float lo[3][2], hi[3][2];
+          group(k4, lo);
+          group(k4 + 4, hi);
+#pragma unroll
+          for (int e = 0; e < 6; ++e)
+            u[e / 2][e % 2][k4] = rs_first(lo[e / 2][e % 2], hi[e / 2][e % 2],
+                                           lane);
+        }
+#pragma unroll
+        for (int e = 0; e < 6; ++e)
+          run[c][e / 2][e % 2] += rs_rest(u[e / 2][e % 2], lane);
+      }
+    }
+    fence_async_smem();
+    bar_sync(1 + wg, 128);
+    if (t == 0) {
+      for (int c = 0; c < nb; ++c)
+        tma_store(&dy_map, st + (kb + c) * kBoxBytes, c * kBox,
+                  static_cast<int>(row0));
+      tma_store_drain();
+      mbar_arrive(&empty[s]);
+    }
   }
-  write_partial_row(acc, 3 * nj, partial);
+  write_partial_row<3>(run, nb, nj, reinterpret_cast<float*>(ring), partial);
 }
 
 }  // namespace
 
 // dy_up: (m, n) bf16, w1: (nj, n) bf16, dy_res and x_raw: (m, nj) bf16,
-// mu: nj floats, all 16-byte aligned; n, nj multiples of 16. dy: (m, nj)
-// bf16. partial: max_blocks * 3nj floats. out: 3nj floats, [sum dy |
-// sum dy * xc | sum dy^2]. Returns a CUDA error code, 0 when both passes
-// were launched.
+// mu: nj floats, all 16-byte aligned; n, nj multiples of 16, nj <= 256,
+// the plan within 227 KB of shared memory (ops/conv_chain.py:_plan).
+// dy: (m, nj) bf16. partial: max_blocks * 3nj floats. out: 3nj floats,
+// [sum dy | sum dy * xc | sum dy^2]. Returns a CUDA error code, 0 when
+// both passes were launched.
 extern "C" int conv_bwd_join_launch(const void* dy_up, const void* w1,
                                     const void* dy_res, const void* x_raw,
                                     const void* mu, long long m, int nj,
                                     int n, void* dy, void* partial,
                                     int max_blocks, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = join_smem(nj, n);
-  int grid = 0;
-  cudaError_t e =
-      persistent_grid(conv_bwd_join_kernel, smem, m, max_blocks, &grid);
+  Plan plan;
+  if (!join_plan(nj, n, &plan)) return cudaErrorInvalidValue;
+  CUtensorMap up_map, res_map, x_map, dy_map;
+  cudaError_t e = tensor_map(&up_map, dy_up, m, n);
+  if (e == cudaSuccess) e = tensor_map(&res_map, dy_res, m, nj);
+  if (e == cudaSuccess) e = tensor_map(&x_map, x_raw, m, nj);
+  if (e == cudaSuccess) e = tensor_map(&dy_map, dy, m, nj);
   if (e != cudaSuccess) return static_cast<int>(e);
-  conv_bwd_join_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(dy_up), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(dy_res), static_cast<const bf16*>(x_raw),
-      static_cast<const float*>(mu), m, nj, n, static_cast<bf16*>(dy),
+  int grid = 0;
+  e = persistent_grid(conv_bwd_join_kernel, plan.smem, m, max_blocks, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  conv_bwd_join_kernel<<<grid, kThreads, plan.smem, st>>>(
+      up_map, res_map, x_map, dy_map, static_cast<const bf16*>(w1),
+      static_cast<const float*>(mu), m, nj, n, plan.stages,
       static_cast<float*>(partial));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -39,8 +39,8 @@ from stil_tta_torch.ops import cuda_build
 
 Tensor = torch.Tensor
 BF16 = torch.bfloat16
-BLOCKS_PER_SM = 8   # capacity of the per-block partial sums; the kernel
-                    # launches at most as many blocks as fit on the card
+BLOCKS_PER_SM = 1   # rows of the per-block partial sums: the kernels
+                    # launch at most one block an SM
 
 
 def prologue_plain(raw: Tensor, A: Tensor, B: Tensor) -> Tensor:
@@ -114,11 +114,44 @@ def _check(name: str, t: Tensor, shape: tuple, dtype: torch.dtype,
                          "aligned")
 
 
-def _widths(name: str, **dims: int) -> None:
-    for dim, v in dims.items():
+SMEM_LIMIT = 232_448    # shared memory a block may use on the H100 (227 KB)
+BOX_BYTES = 64 * 64 * 2  # a 64 x 64 bf16 box of shared memory
+MAX_STAGES = 4
+MAX_WIDTH = 256          # output columns: four 64-wide chunks
+
+
+def _plan(k: int, n: int, join: bool = False) -> dict:
+    """The kernels' shared-memory plan, as ``csrc/conv_chain_common.cuh``
+    (``make_plan``) lays it out, or ``ValueError`` for widths the kernels
+    do not take.
+
+    ``k`` is the product's depth and ``n`` its output width: the chain's
+    (K, N), the join's (N, NJ). Each is a multiple of 16 and is padded to
+    64-column boxes; ``n`` is at most 256. A stage holds one 64-row tile:
+    the chain's raw and y boxes, the join's dy_up, dy_res (then dy) and
+    x_raw boxes. The weight stays resident, so the plan fits 227 KB only
+    with at least two stages beside it: that is the ceiling on k x n.
+    Returns the stages (at most 4) and the bytes of a stage, of the
+    weight and in all."""
+    name = "conv_bwd_join" if join else "conv_chain"
+    for dim, v in zip(("N", "NJ") if join else ("K", "N"), (k, n)):
         if v <= 0 or v % 16:
             raise ValueError(f"{name}: {dim}={v} must be a positive "
                              "multiple of 16")
+    if n > MAX_WIDTH:
+        raise ValueError(f"{name}: output width {n} above {MAX_WIDTH}")
+    kb, nb = -(-k // 64), -(-n // 64)
+    stage = (kb + (2 * nb if join else nb)) * BOX_BYTES
+    weight = kb * nb * BOX_BYTES
+    extra = nb * 64 * 4 if join else 2 * kb * 64 * 2   # mu, or bf16 A and B
+    fixed = 1024 + weight + extra + 2 * MAX_STAGES * 8  # align, barriers
+    if fixed + 2 * stage > SMEM_LIMIT:
+        raise ValueError(f"{name}: a {k} x {n} weight leaves no room for "
+                         f"two {stage}-byte stages in {SMEM_LIMIT} bytes of "
+                         "shared memory")
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return {"stages": stages, "stage_bytes": stage, "weight_bytes": weight,
+            "smem": fixed + stages * stage}
 
 
 def _launch(name: str, inputs: Tuple[Tensor, ...], m: int, dims: Tuple[int,
@@ -147,7 +180,7 @@ def _chain(name: str, raw: Tensor, w: Tensor, A: Tensor, B: Tensor
     if raw.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{name}: raw and w must be 2-D")
     (m, k), n = raw.shape, w.shape[1]
-    _widths(name, K=k, N=n)
+    _plan(k, n)
     if m == 0:
         raise ValueError(f"{name}: empty input")
     dev = raw.device
@@ -163,7 +196,8 @@ def conv_chain(raw: Tensor, w: Tensor, A: Tensor,
                B: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """(M, K) bf16 ``raw``, (K, N) bf16 ``w``, (K,) float32 ``A`` and
     ``B`` -> (y (M, N) bf16, sum y (N,), sum y^2 (N,)), the sums float32
-    over the bfloat16 y. K and N are multiples of 16, M is any size.
+    over the bfloat16 y. K and N are multiples of 16 that :func:`_plan`
+    accepts (N <= 256, the weight within shared memory), M is any size.
 
     CPU tensors take :func:`conv_chain_plain`; CUDA tensors (contiguous,
     16-byte aligned) launch the kernel on the current stream, and
@@ -197,7 +231,8 @@ def conv_bwd_join(dy_up: Tensor, w1: Tensor, dy_res: Tensor, x_raw: Tensor,
     """(M, N) bf16 ``dy_up``, (NJ, N) bf16 ``w1``, (M, NJ) bf16 ``dy_res``
     and ``x_raw``, (NJ,) float32 ``mu`` -> (dy (M, NJ) bf16, sum dy,
     sum dy * xc, sum dy^2), each sum (NJ,) float32. N and NJ are
-    multiples of 16, M is any size.
+    multiples of 16 that :func:`_plan` accepts (NJ <= 256, the weight
+    within shared memory), M is any size.
 
     CPU tensors take :func:`conv_bwd_join_plain`; CUDA tensors
     (contiguous, 16-byte aligned) launch the kernel on the current
@@ -210,7 +245,7 @@ def conv_bwd_join(dy_up: Tensor, w1: Tensor, dy_res: Tensor, x_raw: Tensor,
     if dy_up.dim() != 2 or w1.dim() != 2:
         raise ValueError(f"{name}: dy_up and w1 must be 2-D")
     (m, n), nj = dy_up.shape, w1.shape[0]
-    _widths(name, N=n, NJ=nj)
+    _plan(n, nj, join=True)
     if m == 0:
         raise ValueError(f"{name}: empty input")
     dev = dy_up.device
