@@ -23,7 +23,9 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    ``train.test.test`` (ResNet-50, 4-layer tabular transformer at d=512,
    one fusion layer, seeded random weights), with the kernel's launch
    count, wall time and peak memory; then the same adaptation with the
-   kernel and with the plain statistics side by side.
+   kernel and with the plain statistics side by side; then a profile of
+   the adaptation, which must show one ``bn_stats`` kernel a launch (212)
+   and no ``column_sums`` kernel.
 5. Serving: ``Predictor`` at batch 512, samples/s.
 6. Training at full width: ``config_dvm_STiL dataset=synthetic_dvm
    num_classes=286 batch_size=512 synthetic_labelled=512
@@ -43,7 +45,10 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    version and the library call that computes the same sums
    (``torch.batch_norm_stats``, ``torch.batch_norm_backward_reduce``;
    never called by the port), with the L2 cache flushed before every
-   launch.
+   launch (and ``bn_stats`` also after a flush that only reads, which
+   leaves no dirty lines in L2); ``bn_stats``'s plan beside each shape,
+   its registers, shared memory and spills (the ``-Xptxas -v`` report),
+   and its per-call floor (one row a block) beside ``x.add_(0)``.
 10. TTA strategies at full width: ``test()`` with ``tta_strategy`` tent,
     eata and sar on the configuration of phase 4, each with its metrics,
     wall time and ``bn_stats`` launches (53 x 4, the stats phase); then
@@ -129,12 +134,13 @@ def resnet50_bn_shapes(device) -> list:
     return seen
 
 
-def time_ms(fn, x, buf, reps=50) -> float:
+def time_ms(fn, x, buf, reps=50, flush=None) -> float:
     """Mean device time of ``fn(x)``, each call after an L2 flush (a
-    write of ``buf``). A spin kernel first gives the card a head start,
-    so the host queues every call before the card reaches them and the
-    span holds no host time; the flushes' own span, measured the same
-    way, is subtracted."""
+    write of ``buf``, or ``flush()``). A spin kernel first gives the card
+    a head start, so the host queues every call before the card reaches
+    them and the span holds no host time; the flushes' own span, measured
+    the same way, is subtracted. The write leaves up to 50 MB of dirty
+    lines in L2, which the timed call's reads evict to device memory."""
     def span(body) -> float:
         body()
         torch.cuda.synchronize()
@@ -148,9 +154,10 @@ def time_ms(fn, x, buf, reps=50) -> float:
         end.synchronize()
         return start.elapsed_time(end)
 
-    flush = span(buf.zero_)
-    both = span(lambda: (buf.zero_(), fn(x)))
-    return (both - flush) / reps
+    flush = flush or buf.zero_
+    alone = span(flush)
+    both = span(lambda: (flush(), fn(x)))
+    return (both - alone) / reps
 
 
 def check_bwd_kernel(per_forward, gen, dev) -> float:
@@ -436,18 +443,17 @@ def profile_train_step(state, step, batch) -> dict:
     n_kernels = sum(e.count for e in events)
     part = lambda tag: sum(dev_time(e) for e in events  # noqa: E731
                            if tag in e.key) / 1e3
-    # pass 2 is one launch of the same shape for each kernel call: half
-    # of its time is each kernel's
-    pass2 = part("column_sums")
-    stats_ms = part("bn_stats_partial") + pass2 / 2
-    bwd_ms = part("bn_bwd_partial") + pass2 / 2
+    # bn_stats is one kernel a call; bn_bwd_reduce's second pass is
+    # bn_reduce::column_sums_kernel
+    stats_ms = part("bn_stats_kernel")
+    bwd_ms = part("bn_bwd_partial") + part("column_sums")
 
     def kernels_under(e):
         yield from e.kernels
         for ch in e.cpu_children:
             yield from kernels_under(ch)
 
-    ours = ("bn_stats", "bn_bwd", "column_sums")
+    ours = ("bn_stats_kernel", "bn_bwd_partial", "column_sums")
     elem_ms = sum(k.duration for e in prof.events()
                   if e.name.startswith("bn_train.")
                   and e.device_type == DeviceType.CPU
@@ -785,23 +791,31 @@ def main() -> int:
     # where the BN-adapt pass spends device time
     from torch.profiler import ProfilerActivity, profile
     algo.net.load_state_dict(init_state)
+    torch.cuda.synchronize()
+    bn_stats.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         adapt(cfg, algo, cache)
         torch.cuda.synchronize()
+    profiled_launches = bn_stats.launches
     # kernel events only: operator rows repeat their kernels' time
     dev_time = lambda e: getattr(  # noqa: E731
         e, "device_time_total", getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_time(e) for e in events)
-    # pass 2 (column_sums) is shared with bn_bwd_reduce, which this pass
-    # does not run
-    bn_us = sum(dev_time(e) for e in events
-                if "bn_stats" in e.key or "column_sums" in e.key)
+    bn_us = sum(dev_time(e) for e in events if "bn_stats_kernel" in e.key)
+    bn_events = sum(e.count for e in events if "bn_stats_kernel" in e.key)
+    # bn_stats is one kernel a call: no second pass runs in this pass
+    pass2 = sum(e.count for e in events if "column_sums" in e.key)
     log(f"[profile] BN-adapt pass: device busy {busy_us / 1e3:.3f} ms, "
         f"bn_stats kernels {bn_us / 1e3:.3f} ms "
-        f"({bn_us / max(busy_us, 1e-9):.1%})")
+        f"({bn_us / max(busy_us, 1e-9):.1%}); {bn_events} bn_stats kernel "
+        f"events for {profiled_launches} launches "
+        f"({53 * stats_batches} expected), {pass2} column_sums kernels")
+    if not bn_events == profiled_launches == 53 * stats_batches or pass2:
+        raise SystemExit("bn_stats is not one kernel a call in the BN-adapt "
+                         "pass")
     top = sorted(events, key=dev_time, reverse=True)[:8]
     for e in top:
         log(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  {e.count:5d}x  "
@@ -839,8 +853,16 @@ def main() -> int:
 
     # ---- 9. timing per shape (bfloat16, the path's dtype)
     from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
-                                               bn_bwd_reduce_plain)
+                                               bn_bwd_reduce_plain,
+                                               bn_stats_plan)
+    ptxas = ptxas_report("bn_stats")
+    for entry, report in ptxas.items():
+        log(f"[time] bn_stats ptxas {entry}: {report}")
+    if not any("bn_stats_kernel" in k for k in ptxas):
+        raise SystemExit("no ptxas report for bn_stats")
     buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    # a flush that reads: L2 then holds clean lines only
+    clean = torch.ones(64 * 2**20, device=dev)
     lib_fn = lambda x: torch.batch_norm_stats(x, 1e-5)  # noqa: E731
     tot = collections.defaultdict(float)
     bytes_fwd = 0
@@ -850,15 +872,24 @@ def main() -> int:
         t_k = time_ms(bn_stats, x, buf)
         t_p = time_ms(bn_stats_plain, x, buf)
         t_l = time_ms(lib_fn, x, buf)
+        t_c = time_ms(bn_stats, x, buf, flush=clean.sum)
         nbytes = m * c * 2 + 2 * c * 4
         nops = 3 * m * c
         bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
+        plan = bn_stats_plan(x)
         log(f"[time] M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
-            f"bound {bound:.4f} ms ({bound / t_k:.0%} of bound) plain "
-            f"{t_p:.4f} ms batch_norm_stats {t_l:.4f} ms")
+            f"bound {bound:.4f} ms ({bound / t_k:.1%} of bound) plain "
+            f"{t_p:.4f} ms batch_norm_stats {t_l:.4f} ms; kernel after a "
+            f"reading flush {t_c:.4f} ms ({bound / t_c:.1%}); plan grid "
+            f"{plan.grid}, {plan.tiles} tile(s) of {plan.tile_c} x "
+            f"{plan.chunks} chunks of {plan.rows_per_chunk} rows, "
+            f"{plan.stages} stages of {plan.stage_rows} rows "
+            f"({plan.stage_bytes:,d} bytes), {plan.chunks} partial "
+            f"rows, smem {plan.smem:,d}")
         tot["ms"] += n * t_k
         tot["plain_ms"] += n * t_p
         tot["library_ms"] += n * t_l
+        tot["clean_ms"] += n * t_c
         tot["bound_ms"] += n * bound
         bytes_fwd += n * nbytes
         ops_fwd += n * nops
@@ -866,9 +897,18 @@ def main() -> int:
     bound_by = ("bytes" if bytes_fwd / HBM_BYTES_PER_S
                 >= ops_fwd / F32_FLOPS else "operations")
     log(f"[time] one forward (53 BNs, batch 512): kernel {tot['ms']:.4f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms ({bytes_fwd / 1e9:.3f} GB), plain "
+        f"bound {tot['bound_ms']:.4f} ms ({bytes_fwd / 1e9:.3f} GB; the "
+        f"kernel at {tot['bound_ms'] / tot['ms']:.1%} of it), plain "
         f"{tot['plain_ms']:.4f} ms, batch_norm_stats "
-        f"{tot['library_ms']:.4f} ms")
+        f"{tot['library_ms']:.4f} ms; kernel after a reading flush "
+        f"{tot['clean_ms']:.4f} ms ({tot['bound_ms'] / tot['clean_ms']:.1%})")
+    del clean
+    # the cost of a call that moves almost no bytes: one row a block,
+    # beside one elementwise kernel on the same input
+    x = torch.randn(132, 256, generator=gen, device=dev).to(torch.bfloat16)
+    log(f"[time] per-call floor at M=132 C=256: bn_stats "
+        f"{time_ms(bn_stats, x, buf) * 1e3:.2f} us, x.add_(0) "
+        f"{time_ms(lambda t: t.add_(0), x, buf) * 1e3:.2f} us")
 
     # bn_bwd_reduce: x and dy read once, mean and inv read, two sums out
     lib_bwd = lambda t: torch.batch_norm_backward_reduce(  # noqa: E731

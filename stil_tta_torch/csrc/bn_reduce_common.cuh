@@ -1,9 +1,11 @@
-// Shared pieces of the two BatchNorm reduction kernels (bn_stats.cu and
-// bn_bwd_reduce.cu): the 16-byte load types and the second, fixed-order
-// pass that sums each column's per-chunk partials.
+// Shared pieces of the BatchNorm reduction kernels: the block size and
+// the 16-byte load types (bn_stats.cu, bn_bwd_reduce.cu), and the second,
+// fixed-order pass that sums each column's per-chunk partials
+// (bn_bwd_reduce.cu, conv_chain_common.cuh; bn_stats.cu combines its
+// partials inside its own single launch).
 //
-// Both kernels cut a row-major (M, C) input the same way (the wrapper's
-// stil_tta_torch/ops/batch_norm.py:launch_config): a grid of channel
+// bn_bwd_reduce cuts a row-major (M, C) input as the wrapper's
+// stil_tta_torch/ops/batch_norm.py:launch_config says: a grid of channel
 // tiles x row chunks, kThreads threads a block, threads along C reading
 // VEC values each. Pass 1 writes one partial row of 2*C floats per chunk;
 // pass 2 (column_sums_kernel) reduces the chunks column by column.

@@ -39,7 +39,15 @@ from torch import nn
 from stil_tta_torch.ops import cuda_build
 
 THREADS = 256          # kThreads in csrc/bn_reduce_common.cuh
-TARGET_BLOCKS = 132 * 8  # eight blocks for each of the H100's 132 SMs
+TARGET_BLOCKS = 132 * 8  # bn_bwd_reduce: eight blocks for each of 132 SMs
+# bn_stats (csrc/bn_stats.cu): its ring, tiles and grid
+STAGE_BYTES = 32 * 1024  # a ring stage holds up to this many bytes of rows
+STAGE_ROWS = 256         # and at most this many rows (a TMA box's limit)
+STAGES = 4               # ring depth: kMaxStages
+MAX_TILE_C = 256         # channels of a column tile: kMaxTile
+MAX_BLOCKS_PER_SM = 2    # more blocks an SM add partial rows, not bandwidth
+SMEM_FIXED = 256         # kSmemFixed: the mbarriers and 128 bytes to align
+SMEM_LIMIT = 232_448     # shared memory a block may use on the H100
 
 Tensor = torch.Tensor
 
@@ -65,7 +73,7 @@ def bn_bwd_reduce_plain(x2d: Tensor, dy2d: Tensor, mean: Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """How ``bn_stats`` and ``bn_bwd_reduce`` cut an (M, C) input:
+    """How ``bn_bwd_reduce`` cuts an (M, C) input:
     ``vec`` elements per 16-byte load (1 when unaligned), ``threads_c``
     threads across a channel tile, ``chunks`` row chunks of
     ``rows_per_chunk`` rows."""
@@ -94,16 +102,102 @@ def launch_config(m: int, c: int, itemsize: int,
                         rows_per_chunk)
 
 
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """How the ``bn_stats`` kernel cuts an (M, C) input
+    (``csrc/bn_stats.cu``, which checks it before launch).
+
+    ``vec`` elements per 16-byte unit (1: the variant that reads x
+    directly, for an unaligned base or a row that is not a multiple of 16
+    bytes). The channels go in ``tiles`` column tiles of ``tile_c``
+    (a multiple of ``vec``; tile_c / vec threads lie across a tile's row).
+    The rows go in ``chunks`` contiguous chunks of ``rows_per_chunk``;
+    each (tile, chunk) is one block's item, block b takes the items b,
+    b + grid, ... The ring (vec > 1) has ``stages`` stages of
+    ``stage_rows`` rows, ``stage_bytes`` of data each, ``stage_pitch``
+    apart. ``smem`` bytes of dynamic shared memory a block. The partial
+    buffer has one row of 2C floats per chunk; the combine adds
+    ``combine_cols`` output columns a block at a time."""
+
+    vec: int
+    tile_c: int
+    tiles: int
+    stage_rows: int
+    stage_bytes: int
+    stages: int
+    stage_pitch: int
+    rows_per_chunk: int
+    chunks: int
+    grid: int
+    smem: int
+    combine_cols: int
+
+
+def stats_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
+               blocks_per_sm: int) -> StatsPlan:
+    """The ``bn_stats`` launch for (m, c) of ``itemsize`` bytes on a card
+    with ``sms`` SMs that hold ``blocks_per_sm`` of its blocks each. The
+    shared memory does not depend on the last two, so the wrapper can ask
+    the card how many blocks of that size an SM holds first."""
+    vec = 16 // itemsize
+    if not aligned or c % vec:
+        vec = 1
+    tiles = -(-c // MAX_TILE_C)
+    tile_c = -(-(-(-c // tiles)) // vec) * vec
+    tiles = -(-c // tile_c)
+    target = max(1, sms * min(blocks_per_sm, MAX_BLOCKS_PER_SM))
+    chunks_goal = max(1, target // tiles)
+    if vec > 1:
+        row_bytes = tile_c * itemsize
+        stage_rows = max(1, min(STAGE_BYTES // row_bytes, STAGE_ROWS))
+        stage_bytes = stage_rows * row_bytes
+        stage_pitch = -(-stage_bytes // 128) * 128
+        stages = STAGES
+    else:
+        stage_rows = stage_bytes = stages = stage_pitch = 0
+    rows_per_chunk = -(-m // chunks_goal)
+    chunks = -(-m // rows_per_chunk)
+    grid = min(tiles * chunks, target)
+    smem = SMEM_FIXED + max(stages * stage_pitch, 2 * THREADS * vec * 4)
+    combine_cols = 1
+    while combine_cols < min(-(-2 * c // grid), THREADS):
+        combine_cols *= 2
+    return StatsPlan(vec, tile_c, tiles, stage_rows, stage_bytes, stages,
+                     stage_pitch, rows_per_chunk, chunks, grid, smem,
+                     combine_cols)
+
+
 @functools.cache
 def _launcher(name: str):
     """``<name>_launch`` of the built library of ``csrc/<name>.cu``, with
     its C signature declared (pointers and the stream as ``void*``)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = getattr(cuda_build.load(name), f"{name}_launch")
-    inputs = {"bn_stats": [p], "bn_bwd_reduce": [p, p, p, p]}[name]
-    fn.argtypes = inputs + [i, ll, i, i, i, i, ll, p, p, p]
+    fn.argtypes = {
+        "bn_stats": [p, i, ll, i, i, i, i, i, i, i, ll, i, i, i, i, p, p, p],
+        "bn_bwd_reduce": [p, p, p, p, i, ll, i, i, i, i, ll, p, p, p],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _stats_capacity(device: int, is_bf16: bool, vec: int,
+                    smem: int) -> Tuple[int, int]:
+    """(SMs, blocks an SM holds) for the ``bn_stats`` kernel variant with
+    ``smem`` bytes of shared memory, on ``device``."""
+    fn = cuda_build.load("bn_stats").bn_stats_occupancy
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(int(is_bf16), vec, smem, ctypes.addressof(sms),
+                 ctypes.addressof(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError(f"bn_stats: no block of {smem} bytes of shared "
+                           f"memory fits an SM (CUDA error {err})")
+    return sms.value, per_sm.value
 
 
 def _check_2d(name: str, t: Tensor) -> None:
@@ -151,9 +245,36 @@ def bn_stats(x2d: Tensor) -> Tuple[Tensor, Tensor]:
     if x2d.device.type != "cuda":
         raise ValueError(f"bn_stats: unsupported device {x2d.device}")
     _check_2d("bn_stats", x2d)
-    out = _launch("bn_stats", (x2d,), x2d, x2d.data_ptr() % 16 == 0)
+    plan = bn_stats_plan(x2d)
+    m, c = x2d.shape
+    partial = torch.empty((plan.chunks, 2 * c), dtype=torch.float32,
+                          device=x2d.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = _launcher("bn_stats")(
+            x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), m, c, plan.vec,
+            plan.tile_c, plan.tiles, plan.stage_rows, plan.stages,
+            plan.stage_pitch, plan.rows_per_chunk, plan.chunks,
+            plan.combine_cols, plan.grid, plan.smem, partial.data_ptr(),
+            out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"bn_stats: kernel launch failed, CUDA error {err}")
     bn_stats.launches += 1
-    return out
+    return out[0:1], out[1:2]
+
+
+def bn_stats_plan(x2d: Tensor) -> StatsPlan:
+    """The plan :func:`bn_stats` launches for the CUDA tensor ``x2d``: the
+    SM count and the blocks an SM holds come from the card."""
+    m, c = x2d.shape
+    itemsize = x2d.element_size()
+    aligned = x2d.data_ptr() % 16 == 0
+    first = stats_plan(m, c, itemsize, aligned, 1, 1)
+    sms, per_sm = _stats_capacity(x2d.device.index,
+                                  x2d.dtype == torch.bfloat16, first.vec,
+                                  first.smem)
+    return stats_plan(m, c, itemsize, aligned, sms, per_sm)
 
 
 bn_stats.launches = 0
