@@ -13,7 +13,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    compiler's register / shared-memory / spill report.
 3. Kernels against plain: ``bn_stats`` and ``bn_bwd_reduce`` against
    their plain versions at every distinct (M, C) of ResNet-50's
-   BatchNorms at batch 512 and 128x128, in bfloat16 and float32, and two
+   BatchNorms at batch 512 and 128x128, and at batch 128 (the chunk
+   shapes of ``micro_batches=4``), in bfloat16 and float32, and two
    launches bitwise equal; then the train-mode BN Function's gradients
    (dx, dweight, dbias) with the kernels against the plain Function on
    the stem's shape.
@@ -64,6 +65,20 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     join's GEMM timed the same way, and each kernel's time and share of
     its bound beside its registers, shared memory and spills (the
     ``-Xptxas -v`` report) and its shared-memory plan.
+12. STiL_SAINT at full width (``config_dvm_STiL_SAINT``: the SAINT
+    tabular encoder, colrow, token dim 32, on the same ResNet-50 and
+    fusion): the test-time slice of phase 4 through ``test()`` (212
+    ``bn_stats`` launches), its wall time and peak memory; ``Predictor``
+    at batch 512; training with phase 6's flags (53 x 16 launches of
+    each kernel), steps/s, samples/s and peak memory; one train step
+    with the kernels and one with the plain pair, as phase 7.
+13. The fast numerics profile: ``config_dvm_STiL`` with phase 6's flags
+    and ``micro_batches=4 adam_mu_dtype=bfloat16`` (4 chunks of 16 + 112
+    rows a step, one Adam step with a bfloat16 first moment): 212
+    launches of each kernel a step, steps/s; then one step profiled as
+    phase 8 profiles the single-batch step, beside phase 8's numbers.
+
+Each phase's wall time and the total are printed as the phases end.
 
 Float32 convolutions and matmuls run in full float32 here (TF32 off), so
 float32 comparisons are not blurred by TF32 rounding. The second-to-last
@@ -89,6 +104,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH, IMG = 512, 128
+MICRO = 4                   # micro_batches of the fast profile (phase 13)
 TOL = 1e-5                  # relative, of float32 sums over the same data
 FN_TOL = 1e-2               # of max|dx|: one bfloat16 rounding is 2^-8
 SOURCES = ("bn_stats", "bn_bwd_reduce", "conv_chain", "conv_bwd_join")
@@ -116,9 +132,22 @@ def log(*args):
     print(*args, flush=True)
 
 
-def resnet50_bn_shapes(device) -> list:
-    """(M, C) of each of ResNet-50's BatchNorm inputs at BATCH and IMG,
-    in forward order, read off the tower with forward hooks."""
+class PhaseClock:
+    """Wall time of each phase, printed as it ends, and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phase {name}: {now - self.last:.1f} s (total "
+            f"{now - self.start:.1f} s)")
+        self.last = now
+
+
+def resnet50_bn_shapes(device, batch: int = BATCH) -> list:
+    """(M, C) of each of ResNet-50's BatchNorm inputs at ``batch`` and
+    IMG, in forward order, read off the tower with forward hooks."""
     from stil_tta_torch.models.resnet import resnet50
     from stil_tta_torch.ops.batch_norm import BatchNorm2d
     tower = resnet50(dtype=torch.bfloat16).to(device).eval()
@@ -127,7 +156,7 @@ def resnet50_bn_shapes(device) -> list:
         if isinstance(m, BatchNorm2d):
             m.register_forward_pre_hook(
                 lambda mod, inp: seen.append(
-                    (BATCH * inp[0].shape[2] * inp[0].shape[3],
+                    (batch * inp[0].shape[2] * inp[0].shape[3],
                      inp[0].shape[1])))
     with torch.no_grad():
         tower(torch.zeros(1, IMG, IMG, 3, device=device))
@@ -251,16 +280,20 @@ def check_bn_function(gen, dev) -> None:
                          "disagree")
 
 
-def train_full_width() -> tuple:
-    """Phase 6: ``evaluate`` at full width; returns the config and the
-    kernels' launch counts of the run."""
+def train_full_width(config_name: str = "config_dvm_STiL", extra=(),
+                     per_step: int = 53, tag: str = "train") -> tuple:
+    """Phase 6 (and 12, 13): ``evaluate`` at full width; returns the
+    config, the kernels' launch counts of the run and its second epoch's
+    steps/s. ``per_step``: the launches of each kernel a step."""
     from stil_tta_torch.config import load_config
     from stil_tta_torch.ops.batch_norm import BNTrain, bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.evaluate import evaluate
-    cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES)
+    cfg = load_config(config_name, TRAIN_OVERRIDES + list(extra))
     logdir = Path(cfg.logdir)
     shutil.rmtree(logdir, ignore_errors=True)
-    log(f"[train] {cfg.model} img {cfg.img_size} tabular "
+    log(f"[{tag}] {cfg.algorithm_name}, micro_batches {cfg.micro_batches}, "
+        f"adam_mu_dtype {cfg.adam_mu_dtype}")
+    log(f"[{tag}] {cfg.model} img {cfg.img_size} tabular "
         f"{cfg.tabular_transformer_num_layers}x{cfg.tabular_embedding_dim} "
         f"fusion {cfg.multimodal_transformer_num_layers}x"
         f"{cfg.multimodal_embedding_dim} classes {cfg.num_classes} batch "
@@ -284,57 +317,69 @@ def train_full_width() -> tuple:
     train = [r for r in records if "multimodal.train.loss" in r]
     val = [r for r in records if "eval.val.acc" in r]
     for r in train:
-        log(f"[train] epoch {r['_step']} train {json.dumps(r)}")
+        log(f"[{tag}] epoch {r['_step']} train {json.dumps(r)}")
     for r in val:
-        log(f"[train] epoch {r['_step']} val {json.dumps(r)}")
-    log(f"[train] results {json.dumps(results)}")
+        log(f"[{tag}] epoch {r['_step']} val {json.dumps(r)}")
+    log(f"[{tag}] results {json.dumps(results)}")
     sps = train[-1]["multimodal.train.samples_per_sec"]
-    log(f"[train] second epoch: {sps / int(cfg.batch_size):.3f} steps/s, "
+    log(f"[{tag}] second epoch: {sps / int(cfg.batch_size):.3f} steps/s, "
         f"{sps:.1f} samples/s (8 steps and epoch_end, host clock); whole "
         f"run {wall:.1f} s (data synthesis, weight init, validation, "
         f"checkpoints, test); peak memory {peak / 2**30:.3f} GiB")
-    log(f"[train] launches {launches} (53 x {TRAIN_STEPS} = "
-        f"{53 * TRAIN_STEPS} each); dy copied to channels_last in "
+    log(f"[{tag}] launches {launches} ({per_step} x {TRAIN_STEPS} = "
+        f"{per_step * TRAIN_STEPS} each); dy copied to channels_last in "
         f"{dy_copies} of {launches['bn_bwd_reduce']} BN backwards")
-    if any(n != 53 * TRAIN_STEPS for n in launches.values()):
-        raise SystemExit("a kernel's launch count is off the training path")
+    if any(n != per_step * TRAIN_STEPS for n in launches.values()):
+        raise SystemExit(f"{tag}: a kernel's launch count is off the "
+                         "training path")
     values = [v for r in train + val for k, v in r.items()
               if k != "_step" and isinstance(v, (int, float))]
     values += list(results.values())
     if len(train) != 2 or not all(math.isfinite(v) for v in values):
-        raise SystemExit("non-finite or missing training logs or metrics")
-    return cfg, launches
+        raise SystemExit(f"{tag}: non-finite or missing training logs or "
+                         "metrics")
+    return cfg, launches, sps / int(cfg.batch_size)
 
 
 def _clone(named) -> dict:
     return {k: t.detach().float().clone() for k, t in named}
 
 
-def train_step_kernel_vs_plain(cfg, dev) -> tuple:
-    """Phase 7: one train step (epoch 1, past start_epoch) from one state
-    with the kernels and with the plain pair, cuDNN deterministic. Returns
-    the state, the step and its batch, for the profile phase."""
-    from stil_tta_torch.algorithms.stil import STiL
+def step_setup(cfg, dev, dtype=torch.bfloat16) -> tuple:
+    """The algorithm of ``cfg`` computing in ``dtype``, its train step
+    and a full batch (the first rows of each split): (algo, step,
+    batch)."""
+    from stil_tta_torch.algorithms.registry import get_algorithm
     from stil_tta_torch.data.datasets import load_sources
     from stil_tta_torch.data.loader import DeviceCache
-    from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
-                                               bn_bwd_reduce_plain,
-                                               bn_functions, bn_stats,
-                                               bn_stats_plain)
-    from stil_tta_torch.train.optim import set_learning_rate
     src = load_sources(cfg)
     src_l, src_u = src["train_labelled"], src["train_unlabelled"]
-    algo = STiL(cfg, src_l.field_lengths, device=dev)
+    algo = get_algorithm(cfg.algorithm_name)(cfg, src_l.field_lengths,
+                                             dtype=dtype, device=dev)
     cache_l = DeviceCache(src_l, device=dev).as_dict()
     cache_u = DeviceCache(src_u, device=dev).as_dict()
     b_l = int(cfg.batch_size) // (1 + int(cfg.unlabelled_ratio))
     batch = (cache_l, cache_u, torch.arange(b_l, device=dev),
              torch.arange(int(cfg.batch_size) - b_l, device=dev))
+    return algo, algo.make_train_step(), batch
+
+
+def train_step_kernel_vs_plain(cfg, dev, dtype=torch.bfloat16) -> tuple:
+    """Phase 7 (and 12, 13): one train step (epoch 1, past start_epoch)
+    from one state with the kernels and with the plain pair, cuDNN
+    deterministic, the net computing in ``dtype``. Returns the state, the
+    step and its batch, for the profile phase."""
+    from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
+                                               bn_bwd_reduce_plain,
+                                               bn_functions, bn_stats,
+                                               bn_stats_plain)
+    from stil_tta_torch.train.optim import set_learning_rate
+    algo, step, batch = step_setup(cfg, dev, dtype)
     state = algo.init_state(0)
     net0 = copy.deepcopy(state.net.state_dict())
+    p0 = _clone(state.net.named_parameters())
     ema0 = copy.deepcopy(state.ema.state_dict())
     rng0 = torch.cuda.get_rng_state()
-    step = algo.make_train_step()
     torch.backends.cudnn.deterministic = True
     runs = {}
     for name, fns in (("kernel", (bn_stats, bn_bwd_reduce)),
@@ -363,7 +408,6 @@ def train_step_kernel_vs_plain(cfg, dev) -> tuple:
                         .sum()) for n in b)
         return math.sqrt(num / max(den, 1e-30))
 
-    p0 = {n: net0[n].float() for n in p["params"]}
     d_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     d_grad = rel_l2(k["grads"], p["grads"])
     d_upd = rel_l2(k["params"], p["params"], p0)
@@ -375,7 +419,9 @@ def train_step_kernel_vs_plain(cfg, dev) -> tuple:
     d_var = max(float(((k["stats"][n] - p["stats"][n]).abs()
                        / p["stats"][n].clamp_min(1e-12)).max())
                 for n in k["stats"] if n.endswith("var"))
-    log(f"[step] one train step, kernels vs plain (epoch 1, lr {STEP_LR}): "
+    log(f"[step] {cfg.algorithm_name} (micro_batches {cfg.micro_batches}, "
+        f"{str(dtype)[6:]}): one train step, kernels vs plain "
+        f"(epoch 1, lr {STEP_LR}): "
         f"loss {k['loss']:.6f} vs {p['loss']:.6f} (rel {d_loss:.2e}, tol "
         f"1e-2); gradients rel L2 {d_grad:.3e} (tol 0.1); parameter "
         f"updates rel L2 {d_upd:.3e} (tol 0.5), largest element difference "
@@ -391,9 +437,9 @@ def train_step_kernel_vs_plain(cfg, dev) -> tuple:
     return state, step, batch
 
 
-def profile_train_step(state, step, batch) -> dict:
-    """Phase 8: one train step under the profiler, and one more on the
-    host's clock alone. BN's forward and backward run inside named ranges
+def profile_train_step(state, step, batch, tag: str = "m=1") -> dict:
+    """Phase 8 (and 13): one train step under the profiler, and one more
+    on the host's clock alone. BN's forward and backward run inside named ranges
     (a subclass of the Function, for this phase only), so the device time
     of their elementwise kernels can be read off."""
     from torch.autograd import DeviceType
@@ -463,7 +509,7 @@ def profile_train_step(state, step, batch) -> dict:
            "busy_ms": busy, "bn_stats_ms": stats_ms,
            "bn_bwd_reduce_ms": bwd_ms, "bn_elementwise_ms": elem_ms,
            "kernel_launches": n_kernels}
-    log(f"[profile] train step: host clock {host_ms:.3f} ms (median of "
+    log(f"[profile] train step ({tag}): host clock {host_ms:.3f} ms (median of "
         f"{', '.join(f'{t:.3f}' for t in host)}; profiled "
         f"{prof_host_ms:.3f} ms), device busy {busy:.3f} ms, idle share "
         f"{1 - busy / host_ms:.1%}; {n_kernels} kernel launches, "
@@ -538,6 +584,112 @@ def tta_strategies_full_width() -> None:
         if counts.get("selected", 1) == 0 or moved == 0.0:
             raise SystemExit(f"{strategy}: the adaptation did no work")
         del algo, cache, src
+
+
+def saint_phase(dev) -> dict:
+    """Phase 12: STiL_SAINT's test-time slice, serving and training at
+    full width, and a train step with the kernels against the plain
+    pair; returns the kernels' launch counts of its paths."""
+    import numpy as np
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.ops.batch_norm import bn_stats
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.test import build_algo, load_test_split, test
+    from stil_tta_torch.tta import adapt
+    cfg = load_config("config_dvm_STiL_SAINT", TEST_OVERRIDES + [
+        "tta_strategy=bn_adapt", "logdir=runs/chip_smoke_saint"])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bn_stats.launches = 0
+    t0 = time.perf_counter()
+    metrics = test(cfg.copy(), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    adapt_launches = bn_stats.launches
+    peak = torch.cuda.max_memory_allocated()
+    batches = math.ceil(int(cfg.synthetic_test) / int(cfg.batch_size))
+    log(f"[saint] {cfg.algorithm_name} test(): metrics {json.dumps(metrics)}")
+    log(f"[saint] bn_stats launches {adapt_launches} (53 x {batches}); wall "
+        f"{wall:.3f} s (data synthesis, weight init, BN-adapt, scoring); "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    if adapt_launches != 53 * batches:
+        raise SystemExit("STiL_SAINT: bn_stats launch count off the "
+                         "BN-adapt path")
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in metrics.values()):
+        raise SystemExit(f"STiL_SAINT: bad test metrics {metrics}")
+
+    src = load_test_split(cfg)
+    algo = build_algo(cfg, src.field_lengths, "cuda")
+    cache = DeviceCache(src, device="cuda").as_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapt(cfg, algo, cache)
+    torch.cuda.synchronize()
+    t_adapt = time.perf_counter() - t0
+    pred = Predictor(algo, batch_size=512)
+    images, tabular = np.asarray(src.images), np.asarray(src.tabular)
+    pred(images[:512], tabular[:512])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = pred(images, tabular)
+    serve_s = time.perf_counter() - t0
+    log(f"[saint] BN-adapt alone {t_adapt * 1e3:.1f} ms ({batches} batches); "
+        f"Predictor batch 512: {len(images)} samples in "
+        f"{serve_s * 1e3:.1f} ms = {len(images) / serve_s:.1f} samples/s")
+    if probs.shape != (len(images), int(cfg.num_classes)) \
+            or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-3:
+        raise SystemExit("STiL_SAINT: bad serving output")
+    del algo, cache, pred, src
+
+    train_cfg, launches, _ = train_full_width(
+        "config_dvm_STiL_SAINT", ["logdir=runs/chip_smoke_saint_train"],
+        tag="saint-train")
+    # float32 activations: in bfloat16 the pairs' float32 summation orders
+    # flip the bf16 rounding of a channel's mean or scale now and then, and
+    # one flip moves the step's gradients by 5-25% (rel L2) whichever
+    # kernel is right; float32 keeps the comparison on the kernels
+    train_step_kernel_vs_plain(train_cfg, dev, torch.float32)
+    return {"stil_saint_bn_adapt": {"bn_stats": adapt_launches},
+            "stil_saint_train": launches}
+
+
+def fast_profile_phase(dev, single: dict) -> dict:
+    """Phase 13: training in the fast numerics profile, then one of its
+    steps profiled beside phase 8's single-batch step (``single``);
+    returns the kernels' launch counts of the training run."""
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.optim import Adam, set_learning_rate
+    extra = [f"micro_batches={MICRO}", "adam_mu_dtype=bfloat16",
+             "logdir=runs/chip_smoke_fast"]
+    cfg, launches, sps = train_full_width(
+        "config_dvm_STiL", extra, per_step=53 * MICRO, tag="fast")
+    # float32: see saint_phase
+    train_step_kernel_vs_plain(cfg, dev, torch.float32)
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    step(state, *batch, 1)
+    torch.cuda.synchronize()
+    per_step = (bn_stats.launches, bn_bwd_reduce.launches)
+    if per_step != (53 * MICRO, 53 * MICRO):
+        raise SystemExit(f"fast profile: {per_step} launches a step")
+    moments = state.optimizer.state.values()
+    if not isinstance(state.optimizer, Adam) or not moments or any(
+            st["exp_avg"].dtype != torch.bfloat16 for st in moments):
+        raise SystemExit("fast profile: the first moment is not bfloat16")
+    fast = profile_train_step(state, step, batch, tag=f"m={MICRO}")
+    log(f"[fast] steps/s over the second epoch {sps:.3f} (m={MICRO}); one "
+        f"step: host {fast['host_ms']:.3f} ms vs {single['host_ms']:.3f} ms "
+        f"(m=1), device busy {fast['busy_ms']:.3f} vs "
+        f"{single['busy_ms']:.3f} ms, idle share "
+        f"{1 - fast['busy_ms'] / fast['host_ms']:.1%} vs "
+        f"{1 - single['busy_ms'] / single['host_ms']:.1%}, kernel launches "
+        f"{fast['kernel_launches']} vs {single['kernel_launches']}")
+    return launches
 
 
 def ptxas_report(source: str) -> dict:
@@ -648,6 +800,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    clock = PhaseClock()
 
     # ---- 1. device
     kind = torch.cuda.get_device_name(0)
@@ -659,6 +812,7 @@ def main() -> int:
     log(f"[device] {kind} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
+    clock.lap("1 device")
 
     # ---- 2. build, one nvcc for each source, all started together
     from stil_tta_torch.ops import cuda_build
@@ -671,16 +825,23 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    clock.lap("2 build")
 
     # ---- 3. kernel against plain at every ResNet-50 BN shape
     from stil_tta_torch.ops.batch_norm import bn_stats, bn_stats_plain
     shapes = resnet50_bn_shapes(dev)
     assert len(shapes) == 53, len(shapes)
     per_forward = collections.Counter(shapes)
+    # the chunk shapes of micro_batches=4: batch 128
+    chunk_shapes = [s for s in collections.Counter(
+        resnet50_bn_shapes(dev, BATCH // MICRO)) if s not in per_forward]
+    log(f"[kernel] batch {BATCH // MICRO} adds {len(chunk_shapes)} (M, C): "
+        f"{chunk_shapes}")
+    checked = list(per_forward) + chunk_shapes
     gen = torch.Generator(device=dev).manual_seed(0)
     max_abs = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for m, c in per_forward:
+        for m, c in checked:
             x = (torch.randn(m, c, generator=gen, device=dev)
                  + 0.5).to(dtype)
             s, ss = bn_stats(x)
@@ -701,8 +862,9 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"bn_stats disagrees at {(m, c, dtype)}")
             del x
-    max_abs_bwd = check_bwd_kernel(per_forward, gen, dev)
+    max_abs_bwd = check_bwd_kernel(checked, gen, dev)
     check_bn_function(gen, dev)
+    clock.lap("3 kernels vs plain")
 
     # ---- 4. the slice at full width
     from stil_tta_torch.config import load_config
@@ -820,6 +982,7 @@ def main() -> int:
     for e in top:
         log(f"[profile]   {dev_time(e) / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:90]}")
+    clock.lap("4 test-time slice")
 
     # ---- 5. serving
     from stil_tta_torch.serve import Predictor
@@ -840,16 +1003,20 @@ def main() -> int:
         raise SystemExit("bad serving output")
     adapt_launches = launches
     del algo, cache, pred, src, runs
+    clock.lap("5 serving")
 
     # ---- 6. training at full width
-    train_cfg, launches = train_full_width()
+    train_cfg, launches, _ = train_full_width()
+    clock.lap("6 training")
 
     # ---- 7. one train step with the kernels and with the plain pair
     state, step, batch = train_step_kernel_vs_plain(train_cfg, dev)
+    clock.lap("7 kernel vs plain step")
 
     # ---- 8. profile of one train step
-    profile_train_step(state, step, batch)
+    single = profile_train_step(state, step, batch)
     del state, step, batch
+    clock.lap("8 step profile")
 
     # ---- 9. timing per shape (bfloat16, the path's dtype)
     from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
@@ -949,12 +1116,28 @@ def main() -> int:
     log(f"[time] launches: BN-adapt slice bn_stats {adapt_launches}; "
         f"training {launches} (the record's counts)")
     del buf
+    clock.lap("9 kernel timing")
 
     # ---- 10. TTA strategies at full width
     tta_strategies_full_width()
+    clock.lap("10 TTA strategies")
 
     # ---- 11. the conv+BN probe
     probe_rows = probe_phase()
+    clock.lap("11 probe")
+
+    # ---- 12. STiL_SAINT at full width
+    by_path = {"stil_bn_adapt": {"bn_stats": adapt_launches},
+               "stil_train": launches}
+    by_path.update(saint_phase(dev))
+    clock.lap("12 STiL_SAINT")
+
+    # ---- 13. the fast numerics profile
+    by_path["fast_profile_train"] = fast_profile_phase(dev, single)
+    clock.lap("13 fast profile")
+    log(f"[time] launches by path {json.dumps(by_path)}")
+    paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
+             for k in ("bn_stats", "bn_bwd_reduce")}
 
     log(smi)
     log(json.dumps({"kernels": [{
@@ -964,14 +1147,16 @@ def main() -> int:
         "launches": launches["bn_stats"], "max_abs_err": max_abs,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"], "bound_by": bound_by,
-        "library_ms": tot["library_ms"]}, {
+        "library_ms": tot["library_ms"],
+        "launches_by_path": paths["bn_stats"]}, {
         "name": "bn_bwd_reduce", "route": "cuda",
         "source": "stil_tta_torch/csrc/bn_bwd_reduce.cu",
         "replaces": "stil_tta_tpu/ops/batch_norm.py:97",
         "launches": launches["bn_bwd_reduce"], "max_abs_err": max_abs_bwd,
         "ms": tot_b["ms"], "plain_ms": tot_b["plain_ms"],
         "bound_ms": tot_b["bound_ms"], "bound_by": bound_by_b,
-        "library_ms": tot_b["library_ms"]}] + probe_rows}))
+        "library_ms": tot_b["library_ms"],
+        "launches_by_path": paths["bn_bwd_reduce"]}] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -1,11 +1,12 @@
 """Shared semi-supervised machinery, the port of the part of
 ``stil_tta_tpu/algorithms/base.py`` STiL uses: the EMAN teacher update,
-the distribution-alignment ring, and pseudo-label sharpening."""
+the distribution-alignment ring, pseudo-label sharpening, and the chunk
+loop of the micro-batched train steps."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
@@ -71,3 +72,25 @@ def distribution_alignment(da: DAState, probs: Tensor
 def sharpen(logits: Tensor, temperature: float) -> Tensor:
     """``STiLModel.py:195-196``: softmax of the detached logits over T."""
     return torch.softmax(at_least_f32(logits.detach()) / temperature, dim=1)
+
+
+def accumulate_chunks(optimizer: torch.optim.Optimizer, m: int,
+                      chunk: Callable[..., Tensor], *batched: Tensor) -> None:
+    """The chunk loop of a micro-batched train step (``micro_batches:
+    m``; the JAX package's ``step_micro`` scans it): cut each tensor of
+    ``batched`` along its first axis into ``m`` equal chunks, in order;
+    for each chunk call ``chunk(*its_parts)``, which returns the chunk's
+    loss, and back-propagate that loss, so the gradients add up in
+    ``.grad``. Leaves the mean of the ``m`` chunk gradients in ``.grad``;
+    the caller then steps the optimizer once. ``m`` must divide every
+    first axis, as the JAX step asserts."""
+    for t in batched:
+        if t.shape[0] % m:
+            raise ValueError(f"micro_batches={m} must divide the batch "
+                             f"sizes, got {[b.shape[0] for b in batched]}")
+    optimizer.zero_grad(set_to_none=True)
+    for parts in zip(*(t.chunk(m) for t in batched)):
+        chunk(*parts).backward()
+    grads = [p.grad for group in optimizer.param_groups
+             for p in group["params"] if p.grad is not None]
+    torch._foreach_div_(grads, float(m))

@@ -1,6 +1,7 @@
-"""STiL: the network, its train step and its eval step, the port of
-``stil_tta_tpu/algorithms/stil.py`` (single-batch step; the micro-batched
-step of ``micro_batches > 1`` is not ported).
+"""STiL and STiL_SAINT: the network, its train steps and its eval step,
+the port of ``stil_tta_tpu/algorithms/stil.py``: the single-batch step
+and the micro-batched step of ``micro_batches > 1`` (the fast numerics
+profile).
 
 :class:`STiLNet` is the backbone plus the ITC projectors and the CLUB
 estimators in one module, with the reference's torch key layout
@@ -8,6 +9,7 @@ estimators in one module, with the reference's torch key layout
 JAX exports and reference checkpoints alike. :class:`STiL` builds the
 net on a device, the transforms, seeded random weights, the train state
 (:class:`STiLState`), the train step, the epoch end and the eval step.
+:class:`STiL_SAINT` is STiL with the SAINT tabular encoder.
 
 The train state is mutable: the step updates the net, the EMA teacher,
 the optimizer and the buffers in place and returns the same object, where
@@ -25,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stil_tta_torch.algorithms.base import (DAState, distribution_alignment,
+from stil_tta_torch.algorithms.base import (DAState, accumulate_chunks,
+                                            distribution_alignment,
                                             ema_update, sharpen)
 from stil_tta_torch.data.augment import contrastive_pipeline, default_pipeline
 from stil_tta_torch.data.corrupt import corrupt_tabular
@@ -39,6 +42,7 @@ from stil_tta_torch.models.backbones import DisCoBackbone
 from stil_tta_torch.models.layers import (Linear, SimCLRProjectionHead,
                                           acc_dtype)
 from stil_tta_torch.models.resnet import Conv2d
+from stil_tta_torch.models.saint import SAINTEncoder
 from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_compute, accuracy_init,
                                         accuracy_update, auroc_compute,
@@ -71,6 +75,8 @@ class STiLNet(nn.Module):
                  multimodal_embedding_dim: int = 512,
                  tabular_num_layers: int = 4, multimodal_num_layers: int = 1,
                  embedding_dropout: float = 0.0, drop_rate: float = 0.0,
+                 tabular_encoder: str = "transformer",
+                 saint_ff_dropout: float = 0.8,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         hid = multimodal_embedding_dim
@@ -81,7 +87,8 @@ class STiLNet(nn.Module):
             tabular_num_layers=tabular_num_layers,
             multimodal_num_layers=multimodal_num_layers,
             embedding_dropout=embedding_dropout, drop_rate=drop_rate,
-            dtype=dtype)
+            tabular_encoder=tabular_encoder,
+            saint_ff_dropout=saint_ff_dropout, dtype=dtype)
         self.projector_multimodal = SimCLRProjectionHead(
             hid * 3, hid * 3, projection_dim, dtype)
         if target == "dvm":
@@ -125,9 +132,9 @@ class STiLNet(nn.Module):
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights in the JAX package's init families: convs
     kaiming-normal (fan_out, ReLU), dense layers truncated-normal with
-    std sqrt(1/fan_in), embeddings and tokens truncated-normal std 0.02,
-    biases zero, BatchNorm scale 1 / shift 0. ``generator`` lives on the
-    weights' device."""
+    std sqrt(1/fan_in) (SAINT's stacked per-column MLPs too), embeddings
+    and tokens truncated-normal std 0.02, biases zero, BatchNorm scale 1 /
+    shift 0. ``generator`` lives on the weights' device."""
     def normal_(t: Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator,
                             device=t.device).clamp_(-2.0, 2.0) * std)
@@ -144,6 +151,11 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 0.02)
+        elif isinstance(mod, SAINTEncoder):
+            normal_(mod.con_mlp_w1, 1.0)
+            normal_(mod.con_mlp_w2, math.sqrt(1.0 / mod.con_mlp_w2.shape[1]))
+            mod.con_mlp_b1.zero_()
+            mod.con_mlp_b2.zero_()
     for name, p in net.named_parameters():
         if name.endswith(("cls_token", "mask_special_token")):
             normal_(p, 0.02)
@@ -190,12 +202,19 @@ class STiL:
     rate_pt, rate_uce, th1, rate_pseudo, start_epoch, repeat_ratio,
     use_ema, eman, ema_momentum, DA, augmentation_rate, corruption_rate,
     crop_scale_lower, lr_eval, weight_decay_eval, finetune_strategy,
-    adam_mu_dtype, micro_batches and strict_prototypes."""
+    adam_mu_dtype, micro_batches and strict_prototypes; for STiL_SAINT
+    saint_ff_dropout (None reads as the reference's 0.8). ``teacher_int8``
+    is refused: the int8 teacher is not ported."""
 
     name = "STiL"
+    tabular_encoder = "transformer"
 
     def __init__(self, cfg, field_lengths: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        if bool(cfg.teacher_int8):
+            raise NotImplementedError(
+                "teacher_int8 (the int8 EMA teacher) is not ported to "
+                "stil_tta_torch yet (ROADMAP.md)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
@@ -211,6 +230,9 @@ class STiL:
             multimodal_num_layers=int(cfg.multimodal_transformer_num_layers),
             embedding_dropout=float(cfg.embedding_dropout or 0.0),
             drop_rate=float(cfg.drop_rate or 0.0),
+            tabular_encoder=self.tabular_encoder,
+            saint_ff_dropout=(0.8 if cfg.saint_ff_dropout is None
+                              else float(cfg.saint_ff_dropout)),
             dtype=dtype)
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
@@ -277,25 +299,36 @@ class STiL:
 
     # ------------------------------------------------------------------
     def make_train_step(self):
-        """The single-batch train step (``STiLModel.py:228-386``):
-        ``step(state, cache_l, cache_u, idx_l, idx_u, epoch,
-        mask_rand=None)`` updates ``state`` in place and returns it.
+        """The train step: ``step(state, cache_l, cache_u, idx_l, idx_u,
+        epoch, mask_rand=None)`` updates ``state`` in place and returns it.
         ``mask_rand`` (B_U,) bool is the case-3 routing draw; None draws
         it from ``state.generator``.
 
-        Order, as the reference fixes it: the student's train-mode
-        forward (BatchNorm running statistics update in place); the EMAN
-        lerp of the EMA backbone towards the student's pre-update
-        parameters and post-forward statistics; the teacher forward
-        without gradient; the CGPL/PGLS targets (all detached); the
-        losses, backward and Adam step; then the prototype sums (from
-        the teacher's features), metrics and loss sums."""
+        With ``micro_batches: 1``, the single-batch step
+        (``STiLModel.py:228-386``), in the order the reference fixes: the
+        student's train-mode forward (BatchNorm running statistics update
+        in place); the EMAN lerp of the EMA backbone towards the
+        student's pre-update parameters and post-forward statistics; the
+        teacher forward without gradient; the CGPL/PGLS targets (all
+        detached); the losses, backward and Adam step; then the prototype
+        sums (from the teacher's features), metrics and loss sums.
+
+        With ``micro_batches: m > 1``, the JAX package's ``step_micro``
+        (``stil_tta_tpu/algorithms/stil.py:540-706``): the batch runs as
+        m chunks of B/m rows in order, each with its own views and its
+        cut of ``mask_rand``, and one Adam step on the mean of the chunk
+        gradients. Its documented divergences from the single-batch
+        step: BatchNorm statistics per chunk (the running statistics are
+        lerped m times a step); the EMAN lerp runs once, before the first
+        chunk, on the pre-step parameters and running statistics; ITC
+        and CLUB draw their in-batch negatives from the chunk; each
+        chunk aligns (DA) against the pre-step queue with its own mean in
+        slot ``ptr``, the committed slot is the mean of the chunk means
+        and ``ptr`` advances once. The loss sums add the mean of the
+        chunks' logs; prototype sums, accuracy and AUROC add per chunk.
+        ``micro_unroll`` only schedules XLA's scan and is ignored."""
         cfg = self.cfg
-        if int(cfg.micro_batches or 1) > 1:
-            raise NotImplementedError(
-                "micro_batches > 1 (the micro-batched step of the fast "
-                "numerics profile) is not ported to stil_tta_torch yet "
-                "(ROADMAP.md)")
+        m_micro = int(cfg.micro_batches or 1)
         self.aug_train = contrastive_pipeline(
             int(cfg.img_size), cfg.target, float(cfg.crop_scale_lower or 0.08))
         c = self.num_classes
@@ -409,29 +442,29 @@ class STiL:
             }
             return total, logs
 
-        def step(state: STiLState, cache_l: dict, cache_u: dict,
-                 idx_l: Tensor, idx_u: Tensor, epoch: int,
-                 mask_rand: Optional[Tensor] = None) -> STiLState:
-            net, gen = state.net, state.generator
+        def chunk_views(state: STiLState, cache_l: dict, cache_u: dict,
+                        idx_l: Tensor, idx_u: Tensor):
+            """The rows of ``idx_l`` / ``idx_u``, their views concatenated
+            (labelled first) and the missing-column masks, if any."""
             bl, bu = gather_batch(cache_l, idx_l), gather_batch(cache_u, idx_u)
-            y_l, y_u = bl["labels"], bu["labels"]
-            b_l, b_u = y_l.shape[0], y_u.shape[0]
             img_l, tab_l, img_u, tab_u = self._views(
-                gen, bl, bu, marginal_table(cache_l), marginal_table(cache_u))
-            images = torch.cat([img_l, img_u], dim=0)
-            tabs = torch.cat([tab_l, tab_u], dim=0)
+                state.generator, bl, bu, marginal_table(cache_l),
+                marginal_table(cache_u))
             missing = None
             if "missing" in bl and "missing" in bu:
                 missing = torch.cat([bl["missing"], bu["missing"]], dim=0)
-            if mask_rand is None:
-                mask_rand = torch.rand(b_u, generator=gen,
-                                       device=gen.device) >= 0.5
-            use_pseudo = float(int(epoch) > start_epoch)
+            return (bl["labels"], bu["labels"], torch.cat([img_l, img_u], 0),
+                    torch.cat([tab_l, tab_u], 0), missing)
 
-            net.train()
+        def forward_losses(state: STiLState, images, tabs, missing,
+                           mask_rand, y_l, use_pseudo, lerp_ema: bool):
+            """Student forward, teacher forward (after the EMAN lerp when
+            ``lerp_ema``), targets against the state's DA queue, losses."""
+            net = state.net
             outs = net(images, tabs, missing)
             if use_ema:
-                ema_update(state.ema, net.model, momentum, eman)
+                if lerp_ema:
+                    ema_update(state.ema, net.model, momentum, eman)
                 with torch.no_grad():
                     tout = net.teacher(state.ema, images, tabs, missing)
             else:
@@ -439,34 +472,59 @@ class STiL:
                 # (``STiLModel.py:256-257``)
                 tout = {k: outs[k].detach()
                         for k in ("out_m", "out_i", "out_t", "feat_m")}
+            b_l = y_l.shape[0]
             tg = derive_targets(tout, state.da, state.prototypes,
                                 mask_rand, b_l, y_l, use_pseudo)
             total, logs = assemble_losses(outs, tg, y_l, b_l,
                                           state.prototypes, use_pseudo)
+            return outs, tg, total, logs
+
+        @torch.no_grad()
+        def record(state: STiLState, outs, tg, y_l: Tensor, y_u: Tensor):
+            """Prototype sums from the teacher's features, labelled terms
+            scaled 1/repeat_ratio (:374-381), and the streaming metrics."""
+            b_l = y_l.shape[0]
+            pla = tg["pseudo_label_all"]
+            sum_l, cnt_l = cal_prototypes(pla[:b_l], tg["feat_m_le"])
+            sum_u, cnt_u = cal_prototypes(pla[b_l:], tg["feat_m_ue"])
+            state.prototypes_sum = (state.prototypes_sum
+                                    + sum_l / repeat_ratio + sum_u)
+            state.prototypes_count = (state.prototypes_count
+                                      + cnt_l / repeat_ratio + cnt_u)
+            prob_m = torch.softmax(outs["out_m"].detach(), dim=1)
+            pm_l, pm_u = prob_m[:b_l], prob_m[b_l:]
+            if binary:
+                pm_l, pm_u = pm_l[:, 1], pm_u[:, 1]
+                state.auc_train = auroc_update(state.auc_train, pm_l, y_l)
+                state.auc_train_u = auroc_update(state.auc_train_u, pm_u,
+                                                 y_u)
+            state.acc_train = accuracy_update(state.acc_train, pm_l, y_l)
+            state.acc_train_u = accuracy_update(state.acc_train_u, pm_u,
+                                                y_u)
+
+        def draw_mask(state: STiLState, b_u: int,
+                      mask_rand: Optional[Tensor]) -> Tensor:
+            if mask_rand is not None:
+                return mask_rand
+            gen = state.generator
+            return torch.rand(b_u, generator=gen, device=gen.device) >= 0.5
+
+        def step(state: STiLState, cache_l: dict, cache_u: dict,
+                 idx_l: Tensor, idx_u: Tensor, epoch: int,
+                 mask_rand: Optional[Tensor] = None) -> STiLState:
+            y_l, y_u, images, tabs, missing = chunk_views(
+                state, cache_l, cache_u, idx_l, idx_u)
+            mask_rand = draw_mask(state, y_u.shape[0], mask_rand)
+            use_pseudo = float(int(epoch) > start_epoch)
+            state.net.train()
+            outs, tg, total, logs = forward_losses(
+                state, images, tabs, missing, mask_rand, y_l, use_pseudo,
+                lerp_ema=True)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
-
+            record(state, outs, tg, y_l, y_u)
             with torch.no_grad():
-                # prototype sums from the teacher's features, labelled
-                # terms scaled 1/repeat_ratio (:374-381)
-                pla = tg["pseudo_label_all"]
-                sum_l, cnt_l = cal_prototypes(pla[:b_l], tg["feat_m_le"])
-                sum_u, cnt_u = cal_prototypes(pla[b_l:], tg["feat_m_ue"])
-                state.prototypes_sum = (state.prototypes_sum
-                                        + sum_l / repeat_ratio + sum_u)
-                state.prototypes_count = (state.prototypes_count
-                                          + cnt_l / repeat_ratio + cnt_u)
-                prob_m = torch.softmax(outs["out_m"].detach(), dim=1)
-                pm_l, pm_u = prob_m[:b_l], prob_m[b_l:]
-                if binary:
-                    pm_l, pm_u = pm_l[:, 1], pm_u[:, 1]
-                    state.auc_train = auroc_update(state.auc_train, pm_l, y_l)
-                    state.auc_train_u = auroc_update(state.auc_train_u, pm_u,
-                                                     y_u)
-                state.acc_train = accuracy_update(state.acc_train, pm_l, y_l)
-                state.acc_train_u = accuracy_update(state.acc_train_u, pm_u,
-                                                    y_u)
                 state.log_sums = {k: state.log_sums[k] + logs[k].detach()
                                   for k in LOG_KEYS}
                 state.log_count = state.log_count + 1.0
@@ -474,7 +532,51 @@ class STiL:
             state.step += 1
             return state
 
-        return step
+        def step_micro(state: STiLState, cache_l: dict, cache_u: dict,
+                       idx_l: Tensor, idx_u: Tensor, epoch: int,
+                       mask_rand: Optional[Tensor] = None) -> STiLState:
+            mask_rand = draw_mask(state, idx_u.shape[0], mask_rand)
+            use_pseudo = float(int(epoch) > start_epoch)
+            state.net.train()
+            if use_ema:
+                # once, on the pre-step parameters and running statistics
+                ema_update(state.ema, state.net.model, momentum, eman)
+            da0 = state.da
+            lacc = {k: 0.0 for k in LOG_KEYS}
+            da_sum = []
+
+            def chunk(il: Tensor, iu: Tensor, mr: Tensor) -> Tensor:
+                y_l, y_u, images, tabs, missing = chunk_views(
+                    state, cache_l, cache_u, il, iu)
+                outs, tg, total, logs = forward_losses(
+                    state, images, tabs, missing, mr, y_l, use_pseudo,
+                    lerp_ema=False)
+                record(state, outs, tg, y_l, y_u)
+                with torch.no_grad():
+                    for k in LOG_KEYS:
+                        lacc[k] = lacc[k] + logs[k].detach()
+                    if use_da:
+                        # the chunk's mean sits in the slot its alignment
+                        # wrote (da0.ptr is fixed this step)
+                        da_sum.append(tg["da"].queue[da0.ptr])
+                return total
+
+            accumulate_chunks(state.optimizer, m_micro, chunk, idx_l, idx_u,
+                              mask_rand)
+            optim.step(state.optimizer)
+            with torch.no_grad():
+                if use_da:
+                    queue = da0.queue.clone()
+                    queue[da0.ptr] = sum(da_sum[1:], da_sum[0]) / m_micro
+                    state.da = DAState(queue,
+                                       (da0.ptr + 1) % queue.shape[0])
+                state.log_sums = {k: state.log_sums[k] + lacc[k] / m_micro
+                                  for k in LOG_KEYS}
+                state.log_count = state.log_count + 1.0
+            state.step += 1
+            return state
+
+        return step if m_micro == 1 else step_micro
 
     def epoch_end(self, state: STiLState) -> Tuple[STiLState, Dict]:
         """Prototype normalisation (``STiLModel.py:408-415``) and the
@@ -548,3 +650,12 @@ class STiL:
             }
 
         return step
+
+
+class STiL_SAINT(STiL):
+    """STiL with the SAINT tabular encoder (``STiLModel_SAINT.py``; the
+    JAX package's ``STiL_SAINT``): the logic is STiL's, only the
+    backbone's tabular encoder is swapped."""
+
+    name = "STiL_SAINT"
+    tabular_encoder = "saint"

@@ -5,7 +5,8 @@
 // Replaces the Pallas TPU kernel stil_tta_tpu/ops/batch_norm.py:
 // bn_bwd_reduce (_bwd_kernel), the reduction inside bn_train's custom VJP.
 // That kernel carries its two sums across a sequential grid of row tiles.
-// Here, as in bn_stats.cu and with the same partial-sum layout:
+// Here, two launches over the partial-sum layout of bn_reduce_common.cuh
+// (one row of 2*C floats per row chunk):
 //
 //   pass 1 (bn_bwd_partial_kernel): the grid is channel tiles x row
 //     chunks. Threads lie along C and read 16 bytes of x and 16 of dy per
@@ -26,7 +27,8 @@
 // bytes in bf16 (2*M*C*4 in f32), and writes 2*C floats; its 5 flops per
 // element are far below what an H100 does per byte read. The design keeps
 // 16-byte coalesced loads of both inputs and about eight blocks per SM
-// (the wrapper's launch_config, shared with bn_stats).
+// (the wrapper's launch_config, ops/batch_norm.py; bn_stats has its own
+// plan, stats_plan, and combines its partials inside its one launch).
 
 #include "bn_reduce_common.cuh"
 

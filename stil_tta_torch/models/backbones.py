@@ -2,7 +2,8 @@
 ``stil_tta_tpu/models/backbones.py`` the test-time path uses).
 
 :class:`DisCoBackbone` (``STiLModel_backbone.py:35-165``): image tokens
-from the ResNet stage-4 map, tabular tokens, the si/ai/st/at disentangle
+from the ResNet stage-4 map, tabular tokens (the tabular transformer, or
+SAINT with ``tabular_encoder="saint"``), the si/ai/st/at disentangle
 projections, shared-feature reduction, MITransformer fusion, and three
 classifiers (multimodal / imaging / tabular) computing in at least
 float32. Images are NHWC; tabular rows are (B, ncat+ncon) float with the
@@ -19,6 +20,7 @@ from torch import nn
 from stil_tta_torch.models.disentangle import MITransformerLayer
 from stil_tta_torch.models.layers import Linear, MLPHead, acc_dtype
 from stil_tta_torch.models.resnet import EMBEDDING_DIM, image_encoder
+from stil_tta_torch.models.saint import SAINTEncoder
 from stil_tta_torch.models.tabular_transformer import (
     TabularTransformerEncoder, split_field_lengths)
 
@@ -32,26 +34,42 @@ class DisCoBackbone(nn.Module):
     """STiL disentangled-attention backbone. Torch keys follow the
     reference (``encoder_imaging``, ``encoder_tabular``,
     ``projection_{si,ai,st,at}``, ``reduce``, ``transformer.{i}``,
-    ``classifier_{multimodal,imaging,tabular}``)."""
+    ``classifier_{multimodal,imaging,tabular}``). The SAINT variant
+    (``STiLModel_SAINT_backbone.py:108-142``) hard-codes SAINT's
+    hyperparameters (depth 1, 4 heads, colrow, token dim 32, feed-forward
+    dropout ``saint_ff_dropout``) and lifts its 32-wide tokens to the
+    fusion width in ``projection_st`` / ``projection_at``."""
 
     def __init__(self, model: str, field_lengths: Sequence[int],
                  num_classes: int, tabular_embedding_dim: int = 512,
                  multimodal_embedding_dim: int = 512,
                  tabular_num_layers: int = 4, multimodal_num_layers: int = 1,
                  embedding_dropout: float = 0.0, drop_rate: float = 0.0,
+                 tabular_encoder: str = "transformer",
+                 saint_ff_dropout: float = 0.8,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         cat_lengths, con_lengths = split_field_lengths(field_lengths)
         self.encoder_imaging = image_encoder(
             model, return_all_feature_maps=True, dtype=dtype)
-        self.encoder_tabular = TabularTransformerEncoder(
-            cat_lengths, con_lengths, embedding_dim=tabular_embedding_dim,
-            num_layers=tabular_num_layers,
-            embedding_dropout=embedding_dropout, drop_rate=drop_rate,
-            dtype=dtype)
+        self.saint = tabular_encoder == "saint"
+        if self.saint:
+            self.encoder_tabular = SAINTEncoder(
+                cat_lengths, len(con_lengths), token_dim=32, depth=1,
+                heads=4, ff_dropout=saint_ff_dropout, dtype=dtype)
+            tab_dim = 32
+        elif tabular_encoder == "transformer":
+            self.encoder_tabular = TabularTransformerEncoder(
+                cat_lengths, con_lengths,
+                embedding_dim=tabular_embedding_dim,
+                num_layers=tabular_num_layers,
+                embedding_dropout=embedding_dropout, drop_rate=drop_rate,
+                dtype=dtype)
+            tab_dim = tabular_embedding_dim
+        else:
+            raise ValueError(f"unknown tabular_encoder {tabular_encoder!r}")
         hid = multimodal_embedding_dim
         img_dim = EMBEDDING_DIM[model]
-        tab_dim = tabular_embedding_dim
         self.projection_si = MLPHead(img_dim, hid, hid, dtype)
         self.projection_ai = MLPHead(img_dim, hid, hid, dtype)
         self.projection_st = MLPHead(tab_dim, hid, hid, dtype)
@@ -75,7 +93,9 @@ class DisCoBackbone(nn.Module):
         x_i = self.encoder_imaging(image)[-1]   # (B, H, W, C) view
         b, h, w, c = x_i.shape
         x_i = x_i.reshape(b, h * w, c)          # h-major tokens, as JAX
-        x_t = self.encoder_tabular(tabular, missing_mask)
+        # SAINT takes no missing-column mask
+        x_t = (self.encoder_tabular(tabular) if self.saint
+               else self.encoder_tabular(tabular, missing_mask))
         return (self.projection_si(x_i), self.projection_ai(x_i.mean(1)),
                 self.projection_st(x_t[:, 1:]), self.projection_at(x_t[:, 0]))
 

@@ -8,8 +8,8 @@ native-format split into a CSV:
     python -m stil_tta_torch.serve --config-name config_dvm_STiL \
         --checkpoint model.ckpt --source data/test --out predictions.csv
 
-The JAX package's data-parallel and int8 serving options are still to
-port (ROADMAP.md).
+Serves STiL and STiL_SAINT. The JAX package's data-parallel and int8
+serving options are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,9 +25,11 @@ from stil_tta_torch.train.test import build_algo
 
 
 class Predictor:
-    """Scores (images, tabular) in batches of ``batch_size``; the tail
-    batch runs at its natural size (eval BN reads running statistics, so
-    a sample's prediction does not depend on its batch)."""
+    """Scores (images, tabular) in batches of ``batch_size``. The tail
+    batch is padded to ``batch_size`` by repeating its first row, as the
+    JAX package's ``Predictor`` pads it: STiL_SAINT's intersample
+    attention mixes the rows of a batch, so a prediction depends on its
+    batch mates, and the padding is part of the result."""
 
     def __init__(self, algo, batch_size: int = 256):
         self.algo = algo
@@ -56,12 +58,16 @@ class Predictor:
                  tabular: np.ndarray) -> np.ndarray:
         dev = self.algo.device
         outs = []
-        for start in range(0, len(images), self.batch_size):
-            stop = start + self.batch_size
-            img = torch.tensor(np.asarray(images[start:stop]), device=dev)
-            tab = torch.tensor(np.asarray(tabular[start:stop], np.float32),
-                               device=dev)
-            outs.append(self.predict(img, tab))
+        bs = self.batch_size
+        for start in range(0, len(images), bs):
+            img = np.asarray(images[start:start + bs])
+            tab = np.asarray(tabular[start:start + bs], np.float32)
+            n = len(img)
+            if n < bs:
+                img = np.concatenate([img, np.repeat(img[:1], bs - n, 0)])
+                tab = np.concatenate([tab, np.repeat(tab[:1], bs - n, 0)])
+            outs.append(self.predict(torch.tensor(img, device=dev),
+                                     torch.tensor(tab, device=dev))[:n])
         return torch.cat(outs).cpu().numpy()
 
 

@@ -1,11 +1,16 @@
 """JAX variable tree -> reference-layout torch ``state_dict``, and a JAX
 ``STiLState`` -> the port's train state.
 
-The port's own copy of the non-SAINT path of
-``stil_tta_tpu/train/convert.py:export_torch_state_dict`` and its key
-mapping. The port's modules carry the reference's torch key names, so
-the output loads into them with ``load_state_dict(strict=True)``, as a
-reference checkpoint (``tools/export_torch_checkpoint.py``) does.
+The port's own copy of
+``stil_tta_tpu/train/convert.py:export_torch_state_dict`` (the SAINT
+encoder's paths included: its leaves go to the somepago/saint layout,
+the vectorised per-column MLPs split into ``simple_MLP.{i}.layers.{0,
+2}.*``), ``export_saint_state_dict`` and the key mapping. The port's
+modules carry the reference's torch key names, so the output loads into
+them with ``load_state_dict(strict=True)``, as a reference checkpoint
+(``tools/export_torch_checkpoint.py``) does. ``load_saint_state_dict``
+loads a somepago/saint-layout ``.pth`` (the reference's
+``checkpoint_SAINT``) into the port's SAINT encoder.
 
 Value transforms: conv (kh, kw, I, O) -> (O, I, kh, kw); dense (I, O) ->
 (O, I); BN/LN scale -> weight; ``batch_stats`` mean/var ->
@@ -15,7 +20,7 @@ Value transforms: conv (kh, kw, I, O) -> (O, I, kh, kw); dense (I, O) ->
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +95,90 @@ def flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return out
 
 
+_SAINT_HEADS = ("embeds", "pos_encodings")
+
+# SAINT state entries that never take part in the backbone's forward (the
+# JAX package's ``_SAINT_INERT``): SAINT's pretraining heads and mask
+# embeddings, its offset buffers (recomputed from the field lengths), and
+# the wrapper's ``cls_token``, a float cast ``.long()`` as category 0
+_SAINT_INERT = re.compile(
+    r"(^(model\.)?cls_token$"
+    r"|(^|\.)encoder_tabular\.(mask_embeds_cat|mask_embeds_cont"
+    r"|single_mask|mlp|mlp1|mlp2|mlpfory|pt_mlp|pt_mlp2|norm"
+    r"|categories_offset|cat_mask_offset|con_mask_offset"
+    r"|transformer\.embeds|transformer\.mask_embed)(\.|$))")
+
+
+def saint_inert_key(key: str) -> bool:
+    """True for a key of a reference checkpoint that is SAINT state the
+    forward never reads."""
+    return bool(_SAINT_INERT.search(key))
+
+
+def _saint_torch_key(path) -> Tuple[str, bool]:
+    """A SAINT transformer leaf's somepago/saint key and whether its value
+    is transposed: ``l{d}_{norm,attn,ff}{,_ff}_{col,row}`` -> slot 0-3 of
+    ``transformer.layers.{d}``, each ``PreNorm(norm, Residual(fn))``."""
+    mm = re.match(r"l(\d+)_(.+)", path[0]) or re.match(
+        r"l(\d+)_(.+)", path[-2] if len(path) >= 2 else path[-1])
+    if mm is None:
+        raise KeyError(f"unmapped SAINT leaf {'/'.join(path)}")
+    kind = mm.group(2)
+    slot = {"norm_col": 0, "attn_col": 0, "ff_col": 1, "norm_ff_col": 1,
+            "norm_row": 2, "attn_row": 2, "ff_row": 3,
+            "norm_ff_row": 3}[kind]
+    base = f"transformer.layers.{int(mm.group(1))}.{slot}"
+    leaf = path[-1]
+    if kind.startswith("norm"):
+        return base + ".norm." + ("weight" if leaf == "scale"
+                                  else "bias"), False
+    sub = path[-2] if kind.startswith("attn") else {
+        "fc1": "net.0", "fc2": "net.3"}[path[-2]]
+    return (f"{base}.fn.fn.{sub}." + ("weight" if leaf == "kernel"
+                                      else "bias"), leaf == "kernel")
+
+
+def _saint_export_leaf(path, v):
+    """(torch key, value) pairs of one SAINT encoder leaf."""
+    if path[-2:] == ("embeds", "embedding"):
+        yield "embeds.weight", v
+    elif path[-2:] == ("pos_encodings", "embedding"):
+        yield "pos_encodings.weight", v
+    elif path[-1].startswith("con_mlp_"):
+        leaf = {"con_mlp_w1": "layers.0.weight", "con_mlp_b1":
+                "layers.0.bias", "con_mlp_w2": "layers.2.weight",
+                "con_mlp_b2": "layers.2.bias"}[path[-1]]
+        for i in range(v.shape[0]):
+            yield (f"simple_MLP.{i}.{leaf}",
+                   v[i].T if leaf.endswith("weight") else v[i])
+    else:
+        key, transpose = _saint_torch_key(path)
+        yield key, (v.T if transpose else v)
+
+
+def _saint_subpath(path) -> Tuple[Optional[str], Optional[tuple]]:
+    """(torch prefix, path inside the encoder) of a leaf of a SAINT
+    encoder under ``encoder_tabular``, else (None, None). SAINT's leaf
+    names are disjoint from the tabular transformer's."""
+    if "encoder_tabular" not in path:
+        return None, None
+    i = list(path).index("encoder_tabular")
+    rel = tuple(path[i + 1:])
+    if rel and (rel[0] in _SAINT_HEADS or rel[0].startswith("con_mlp_")
+                or re.match(r"l\d+_", rel[0])):
+        return torch_module_name(tuple(path[:i + 1])) + ".", rel
+    return None, None
+
+
+def export_saint_state_dict(params) -> Dict[str, np.ndarray]:
+    """The somepago/saint-layout ``state_dict`` (numpy values) of a JAX
+    SAINT encoder's ``params``."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in flatten(params).items():
+        sd.update(_saint_export_leaf(path, v))
+    return sd
+
+
 def export_state_dict(params, batch_stats=None,
                       with_bn_counters: bool = True
                       ) -> Dict[str, np.ndarray]:
@@ -97,11 +186,11 @@ def export_state_dict(params, batch_stats=None,
     ``params`` / ``batch_stats`` tree (nested mappings of arrays)."""
     sd: Dict[str, np.ndarray] = {}
     for path, v in flatten(params).items():
-        if "encoder_tabular" in path and any(
-                p.startswith(("embeds", "pos_encodings", "con_mlp_"))
-                or re.match(r"l\d+_", p) for p in path):
-            raise NotImplementedError(
-                "SAINT tabular encoders are not ported yet (ROADMAP.md)")
+        saint_prefix, saint_rel = _saint_subpath(path)
+        if saint_prefix is not None:
+            for k, sv in _saint_export_leaf(saint_rel, v):
+                sd[saint_prefix + k] = sv
+            continue
         *mods, leaf = path
         base = torch_module_name(tuple(mods))
         if leaf == "kernel":
@@ -135,6 +224,35 @@ def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     ``load_state_dict(strict=True)`` on the port's modules."""
     return {k: torch.from_numpy(np.array(v))
             for k, v in export_state_dict(params, batch_stats).items()}
+
+
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.pth`` / ``.ckpt`` (its ``state_dict`` entry,
+    or the file itself), on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt)
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_saint_state_dict(encoder: torch.nn.Module,
+                          state_dict: Mapping[str, object]) -> int:
+    """Load a somepago/saint-layout ``state_dict`` (the reference's
+    ``checkpoint_SAINT`` file) into the port's SAINT encoder, strictly
+    over the keys the encoder has; SAINT's other entries (pretraining
+    heads, mask embeddings) are left out, as the JAX package's
+    ``load_saint_state_dict`` leaves them. Returns the number of tensors
+    used."""
+    from stil_tta_torch.models.saint import SAINTEncoder
+    if not isinstance(encoder, SAINTEncoder):
+        raise ValueError("checkpoint_SAINT needs a SAINT tabular encoder "
+                         "(algorithm_name=STiL_SAINT)")
+    keys = list(encoder.state_dict())
+    missing = [k for k in keys if k not in state_dict]
+    if missing:
+        raise KeyError(f"SAINT state_dict lacks {missing[:5]}")
+    encoder.load_state_dict({k: torch.as_tensor(np.asarray(state_dict[k]))
+                             for k in keys}, strict=True)
+    return len(keys)
 
 
 def train_state_from_jax(jax_state) -> Dict[str, object]:

@@ -7,10 +7,12 @@ epoch (dropped last), the labelled stream cycles; both samplers are
 seeded per epoch, so a resumed run replays the uninterrupted one. Each
 epoch validates, keeps the best checkpoint and stops early as the
 reference does; with ``test_and_eval`` the best checkpoint is then
-scored on the test split. Not ported (each raises
-``NotImplementedError``): ``host_stream``, ``weighted_sampler``, a
-``.ckpt``/``.pth`` warm start, ``checkpoint_SAINT``, ``micro_batches >
-1`` and the optimizer options of ``stil_tta_torch.train.optim``.
+scored on the test split. The algorithms are STiL and STiL_SAINT
+(``algorithms/registry.py``); ``checkpoint_SAINT`` loads a
+somepago/saint-layout ``.pth`` into STiL_SAINT's tabular encoder. Not
+ported (each raises ``NotImplementedError``): ``host_stream``,
+``weighted_sampler``, a ``.ckpt``/``.pth`` warm start, ``teacher_int8``
+and the encoder freeze of ``stil_tta_torch.train.optim``.
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -153,18 +155,15 @@ def run_validation(eval_step, cache: dict, batch_size: int,
 
 def _refuse_unported(cfg) -> None:
     """Raise for the training options the port does not have yet."""
-    if cfg.algorithm_name != "STiL":
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm_name!r} is not ported to "
-            f"stil_tta_torch yet (ROADMAP.md); only STiL is")
+    from stil_tta_torch.algorithms.registry import get_algorithm
+    get_algorithm(cfg.algorithm_name)
     unported = {
         "host_stream": bool(cfg.host_stream),
         "weighted_sampler": bool(cfg.weighted_sampler and cfg.weights),
         "a .ckpt/.pth warm start": (
             not cfg.resume_training
             and str(cfg.checkpoint or "").endswith((".ckpt", ".pth"))),
-        "checkpoint_SAINT": bool(cfg.checkpoint_SAINT),
-        "micro_batches > 1": int(cfg.micro_batches or 1) > 1,
+        "teacher_int8": bool(cfg.teacher_int8),
     }
     for what, asked in unported.items():
         if asked:
@@ -179,11 +178,11 @@ def _refuse_unported(cfg) -> None:
 
 def evaluate(cfg, logdir: Optional[Path] = None,
              device="cuda") -> Dict[str, float]:
-    """Train STiL (``trainers/evaluate.py:93-219``); returns
+    """Train STiL or STiL_SAINT (``trainers/evaluate.py:93-219``); returns
     ``{"best_val": ...}`` and, with ``test_and_eval``, the test metrics.
     ``resume_training`` with ``checkpoint=<dir>/checkpoint_last`` resumes
     from a checkpoint written by ``checkpoint_every_n_epochs``."""
-    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.algorithms.registry import get_algorithm
     from stil_tta_torch.data.datasets import (apply_sweep_truncation,
                                               attach_missing_masks,
                                               load_sources)
@@ -208,7 +207,8 @@ def evaluate(cfg, logdir: Optional[Path] = None,
     u_batch = batch_size - l_batch
     cfg.repeat_ratio = max(len(src_u) // (ur * max(len(src_l), 1)) - 1, 1)
 
-    algo = STiL(cfg, src_l.field_lengths, device=device)
+    algo = get_algorithm(cfg.algorithm_name)(cfg, src_l.field_lengths,
+                                             device=device)
     cache_l = DeviceCache(src_l, device=algo.device).as_dict()
     cache_u = DeviceCache(src_u, device=algo.device).as_dict()
     cache_val = DeviceCache(sources["val"], device=algo.device).as_dict()
@@ -219,6 +219,17 @@ def evaluate(cfg, logdir: Optional[Path] = None,
         ckpt = Path(cfg.checkpoint)
         restore_checkpoint(ckpt.parent, state, name=ckpt.name)
         print(f"Resumed training state from {ckpt} at step {state.step}")
+    if cfg.checkpoint_SAINT:
+        # SAINT weights from their own .pth into the student only, as the
+        # JAX package does after its init copied the EMA teacher
+        # (``STiLModel_SAINT_backbone.py:144-146``)
+        from stil_tta_torch.train.convert import (load_saint_state_dict,
+                                                  load_torch_state_dict)
+        n_used = load_saint_state_dict(
+            state.net.model.encoder_tabular,
+            load_torch_state_dict(cfg.checkpoint_SAINT))
+        print(f"Loaded SAINT weights ({n_used} tensors) from "
+              f"{cfg.checkpoint_SAINT}")
     # The JAX package may scan steps_per_dispatch steps in one dispatch
     # (``train/multistep.py``); that is the very same step, so here the
     # steps run one by one.

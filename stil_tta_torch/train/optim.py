@@ -5,7 +5,10 @@ The optimizer is ``torch.optim.Adam`` at ``lr_eval`` with betas (0.9,
 0.999), eps 1e-8 and L2 weight decay folded into the gradient before the
 moments (not AdamW): the semantics of the JAX package's optax chain
 (``add_decayed_weights`` -> ``scale_by_adam`` -> learning rate) and of
-the reference. The learning rate is set per epoch on the param groups
+the reference. With ``adam_mu_dtype: bfloat16`` (the fast numerics
+profile) it is :class:`Adam`, which stores the first moment in bfloat16
+and follows optax's ``scale_by_adam(mu_dtype=...)`` operation for
+operation. The learning rate is set per epoch on the param groups
 (:func:`set_learning_rate`); the schedules are host-side functions of the
 epoch, copied from the JAX package.
 """
@@ -15,23 +18,100 @@ from __future__ import annotations
 import math
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam with L2 weight decay folded into the gradient, the first
+    moment ``exp_avg`` stored in ``mu_dtype`` and the second ``exp_avg_sq``
+    in the parameter's dtype: optax's ``add_decayed_weights`` ->
+    ``scale_by_adam(mu_dtype=...)`` -> learning rate, in its order of
+    operations. The new first moment is formed in the parameter's dtype
+    (``b1 * mu`` rounded to ``mu_dtype`` first, as optax's weakly typed
+    ``b1 * mu`` is), the update is taken from that value, and only then
+    is the moment rounded to ``mu_dtype`` for storage. The interface is
+    ``torch.optim.Adam``'s (param groups, ``lr``, ``betas``, ``eps``,
+    ``weight_decay``, ``state_dict``)."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    def load_state_dict(self, state_dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict`` casts every moment to
+        its parameter's dtype; the first moment goes back to
+        ``mu_dtype`` (exact: it was stored there)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update of every parameter that has a gradient, each
+        group's tensors together (``torch._foreach_*``)."""
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            wd, lr, eps = group["weight_decay"], group["lr"], group["eps"]
+            grads = [p.grad for p in params]
+            if wd:
+                grads = torch._foreach_add(grads,
+                                           torch._foreach_mul(params, wd))
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+            count = np.float32(states[0]["step"])
+            # optax: (1 - b1) * g + b1 * mu, where b1 * mu is a mu_dtype
+            # product (b1 rounded to mu_dtype); bias corrections in float32
+            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            mu = torch._foreach_add(
+                torch._foreach_mul(grads, 1 - b1),
+                [t.to(g.dtype) for t, g in zip(torch._foreach_mul(
+                    [st["exp_avg"] for st in states], b1_mu), grads)])
+            nu = torch._foreach_add(
+                torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+                torch._foreach_mul([st["exp_avg_sq"] for st in states], b2))
+            bc1 = float(np.float32(1) - np.float32(b1) ** count)
+            bc2 = float(np.float32(1) - np.float32(b2) ** count)
+            denom = torch._foreach_add(
+                torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
+            for st, m, v in zip(states, mu, nu):
+                st["exp_avg"] = m.to(self.mu_dtype)
+                st["exp_avg_sq"] = v
+        return None
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                     weight_decay: float = 0.0, freeze: bool = False,
-                    mu_dtype=None) -> torch.optim.Adam:
-    """torch Adam with the JAX package's defaults. The encoder freeze of
-    ``finetune_strategy: frozen`` and a bfloat16 first moment
-    (``adam_mu_dtype``) are not ported."""
+                    mu_dtype=None) -> torch.optim.Optimizer:
+    """torch Adam with the JAX package's defaults, or :class:`Adam` when
+    ``mu_dtype`` (``adam_mu_dtype``) names a storage dtype of the first
+    moment. The encoder freeze of ``finetune_strategy: frozen`` is not
+    ported."""
     if freeze:
         raise NotImplementedError(
             "finetune_strategy=frozen with a warm-start checkpoint is not "
             "ported to stil_tta_torch yet (ROADMAP.md)")
     if mu_dtype is not None:
-        raise NotImplementedError(
-            f"adam_mu_dtype={mu_dtype!r} (the fast numerics profile) is not "
-            f"ported to stil_tta_torch yet (ROADMAP.md)")
+        dtype = getattr(torch, str(mu_dtype)) if isinstance(mu_dtype, str) \
+            else mu_dtype
+        return Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=weight_decay, mu_dtype=dtype)
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
 

@@ -1,10 +1,11 @@
 """Test entry point with test-time adaptation (the port of
 ``stil_tta_tpu/train/test.py``).
 
-Builds the test split, STiL's net on the card (seeded random weights, or
-a reference-layout ``.ckpt``), adapts it with ``tta: true`` (BN-adapt),
-scores the three heads and writes ``metrics.jsonl`` and
-``test_results.csv`` under the run's log directory.
+Builds the test split, the net of STiL or STiL_SAINT on the card (seeded
+random weights, or a reference-layout ``.ckpt``), adapts it with
+``tta: true`` (BN-adapt, Tent, EATA or SAR), scores the three heads and
+writes ``metrics.jsonl`` and ``test_results.csv`` under the run's log
+directory.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from stil_tta_torch.algorithms.registry import get_algorithm
 from stil_tta_torch.algorithms.stil import STiL, init_weights
 from stil_tta_torch.data.datasets import (apply_sweep_truncation,
                                           attach_missing_masks, load_sources)
 from stil_tta_torch.data.loader import DeviceCache
 from stil_tta_torch.data.source import ArraySource
+from stil_tta_torch.train.convert import (load_torch_state_dict,
+                                          saint_inert_key)
 from stil_tta_torch.train.evaluate import run_validation
 from stil_tta_torch.utils.logging import MetricLogger
 
@@ -38,22 +42,23 @@ def load_test_split(cfg) -> ArraySource:
 def load_checkpoint(net: torch.nn.Module, path) -> None:
     """Load a reference-layout torch checkpoint (a ``.ckpt`` written by
     ``tools/export_torch_checkpoint.py``, or a bare ``state_dict``) into
-    ``net`` with ``strict=True``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("state_dict", ckpt)
+    ``net`` with ``strict=True``, leaving out what is not the scoring
+    net's (``_NOT_NET``) and the SAINT entries its forward never reads."""
+    sd = load_torch_state_dict(path)
+    keys = set(net.state_dict())
     net.load_state_dict({k: v for k, v in sd.items()
-                         if not k.startswith(_NOT_NET)}, strict=True)
+                         if not k.startswith(_NOT_NET)
+                         and (k in keys or not saint_inert_key(k))},
+                        strict=True)
 
 
 def build_algo(cfg, field_lengths: Sequence[int], device="cuda",
                dtype: torch.dtype = torch.bfloat16) -> STiL:
-    """STiL on ``device`` with the ``checkpoint`` weights, or seeded
-    random weights (``seed``) when there is none."""
-    if cfg.algorithm_name != "STiL":
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm_name!r} is not ported to "
-            f"stil_tta_torch yet (ROADMAP.md); only STiL is")
-    algo = STiL(cfg, field_lengths, dtype=dtype, device=device)
+    """The algorithm of ``algorithm_name`` (STiL or STiL_SAINT) on
+    ``device`` with the ``checkpoint`` weights, or seeded random weights
+    (``seed``) when there is none."""
+    algo = get_algorithm(cfg.algorithm_name)(cfg, field_lengths,
+                                             dtype=dtype, device=device)
     if cfg.checkpoint:
         load_checkpoint(algo.net, cfg.checkpoint)
     else:

@@ -274,13 +274,18 @@ def test_port_imports_no_jax_jax_package_or_triton():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stil_tta_tpu', "
         "'triton'))\n"
-        "print(len(mods), bad)\n")
+        "print(len(mods), bad)\n"
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          cwd=Path(stil_tta_torch.__file__).parents[1])
-    n, bad = out.stdout.split(" ", 1)
-    # 42 modules: slice 1's, slice 2's (algorithms.base, data.corrupt,
-    # losses.prototype_loss, ops.metrics, train.checkpoint, train.optim)
-    # and slice 3's (ops.conv_chain, tta.methods, tools and
-    # tools.bench_conv_probe)
-    assert int(n) >= 42 and bad.strip() == "[]", out.stdout
+    first, names = out.stdout.splitlines()[:2]
+    n, bad = first.split(" ", 1)
+    # 44 modules: slice 1's, slice 2's (algorithms.base, data.corrupt,
+    # losses.prototype_loss, ops.metrics, train.checkpoint, train.optim),
+    # slice 3's (ops.conv_chain, tta.methods, tools and
+    # tools.bench_conv_probe) and slice 6's (algorithms.registry,
+    # models.saint)
+    assert int(n) >= 44 and bad.strip() == "[]", out.stdout
+    assert {"stil_tta_torch.algorithms.registry",
+            "stil_tta_torch.models.saint"} <= set(names.split())

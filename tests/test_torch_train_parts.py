@@ -179,11 +179,73 @@ def test_optimizer_matches_optax_over_three_steps(weight_decay):
 
 
 def test_optimizer_refuses_unported_options():
+    """The encoder freeze is still refused; a bfloat16 first moment
+    (``adam_mu_dtype``) is ported and builds the port's own Adam."""
     p = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optim.build_optimizer(p, 1e-3, freeze=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_optimizer(p, 1e-3, mu_dtype="bfloat16")
+    opt = optim.build_optimizer(p, 1e-3, mu_dtype="bfloat16")
+    assert isinstance(opt, optim.Adam) and opt.mu_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
+def test_bf16_mu_adam_matches_optax(weight_decay):
+    """The port's Adam with a bfloat16 first moment against the JAX
+    package's chain with ``scale_by_adam(mu_dtype=bfloat16)``, float32
+    parameters, four steps with the learning rate changed between steps
+    1 and 2, one parameter with a zero gradient throughout: parameters
+    and both moments equal bit for bit (the same float32 and bfloat16
+    operations in the same order). Rounding the new moment to bfloat16
+    before the update, instead of after it, already moves the first
+    step."""
+    rng = np.random.RandomState(8)
+    p0 = {"a": rng.randn(3, 40).astype(np.float32),
+          "b": rng.randn(50).astype(np.float32)}
+    grads = [{"a": (rng.randn(3, 40) * 0.1).astype(np.float32),
+              "b": np.zeros(50, np.float32)} for _ in range(4)]
+    lrs = [1e-2, 3e-3, 3e-3, 3e-3]
+    params = [torch.nn.Parameter(T(p0[k].copy())) for k in ("a", "b")]
+    opt = optim.build_optimizer(params, lrs[0], weight_decay,
+                                mu_dtype="bfloat16")
+    tx = joptim.build_optimizer(lrs[0], weight_decay, mu_dtype="bfloat16")
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    state = tx.init(jp)
+    for i, (g, lr) in enumerate(zip(grads, lrs)):
+        optim.set_learning_rate(opt, lr)
+        state = joptim.set_learning_rate(state, lr)
+        for p, k in zip(params, ("a", "b")):
+            p.grad = T(g[k].copy())
+        opt.step()
+        upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                               state, jp)
+        jp = optax.apply_updates(jp, upd)
+        adam = [s for s in jax.tree_util.tree_leaves(
+            state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)][0]
+        for p, k in zip(params, ("a", "b")):
+            st = opt.state[p]
+            assert st["exp_avg"].dtype == torch.bfloat16
+            assert st["exp_avg_sq"].dtype == torch.float32
+            np.testing.assert_array_equal(p.detach().numpy(),
+                                          np.asarray(jp[k]), f"{i} {k}")
+            np.testing.assert_array_equal(
+                st["exp_avg"].float().numpy(),
+                np.asarray(adam.mu[k]).astype(np.float32), f"{i} mu {k}")
+            np.testing.assert_array_equal(st["exp_avg_sq"].numpy(),
+                                          np.asarray(adam.nu[k]))
+    moved = not np.allclose(params[1].detach().numpy(), p0["b"])
+    assert moved == (weight_decay > 0)
+    # the trap: a moment rounded to bfloat16 before the update
+    g, b1 = grads[0]["a"], 0.9
+    mu = torch.tensor((1 - b1) * g).to(torch.bfloat16).float()
+    early = p0["a"] - lrs[0] * (mu / (1 - b1)).numpy() / (
+        np.sqrt((1 - 0.999) * g * g / (1 - 0.999)) + 1e-8)
+    opt = optim.build_optimizer([torch.nn.Parameter(T(p0["a"].copy()))],
+                                lrs[0], mu_dtype="bfloat16")
+    opt.param_groups[0]["params"][0].grad = T(g.copy())
+    opt.step()
+    assert np.abs(early - opt.param_groups[0]["params"][0].detach()
+                  .numpy()).max() > 1e-6
 
 
 @pytest.mark.parametrize("scheduler", ["cosine", "anneal", "linear"])

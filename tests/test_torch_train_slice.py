@@ -166,9 +166,37 @@ def test_cli_resume_is_bitwise_exact(runs):
     assert c_logs[1] == a_logs[1]
 
 
+def test_cli_resume_is_bitwise_exact_in_the_fast_profile(tmp_path):
+    """The fast numerics profile (``micro_batches=2
+    adam_mu_dtype=bfloat16``): two epochs straight through the CLI end
+    bitwise equal to one epoch and a resumed second, the bfloat16 first
+    moment included."""
+    # checkpoint_last only: each snapshot holds the net, the EMA backbone
+    # and both Adam moments
+    fast = ("micro_batches=2", "adam_mu_dtype=bfloat16",
+            "save_checkpoints=false")
+    assert _cli(*fast, "max_epochs=2", "test_and_eval=false",
+                f"logdir={tmp_path / 'a'}") == 0
+    assert _cli(*fast, "max_epochs=1", "test_and_eval=false",
+                f"logdir={tmp_path / 'b'}") == 0
+    assert _cli("resume_training=True",
+                f"checkpoint={tmp_path / 'b' / 'checkpoint_last'}",
+                f"max_epochs={EPOCHS}", f"logdir={tmp_path / 'c'}") == 0
+    straight = torch.load(tmp_path / "a" / "checkpoint_last",
+                          weights_only=True)
+    resumed = torch.load(tmp_path / "c" / "checkpoint_last",
+                         weights_only=True)
+    _assert_equal_tree(straight, resumed)
+    assert resumed["step"] == EPOCHS * STEPS
+    moments = straight["optimizer"]["state"].values()
+    assert {m["exp_avg"].dtype for m in moments} == {torch.bfloat16}
+    assert {m["exp_avg_sq"].dtype for m in moments} == {torch.float32}
+    assert _train_logs(tmp_path / "c")[1] == _train_logs(tmp_path / "a")[1]
+
+
 @pytest.mark.parametrize("override", [
-    "host_stream=true", "micro_batches=2", "checkpoint=warm.ckpt",
-    "checkpoint_SAINT=saint.pth", "algorithm_name=Tent",
+    "host_stream=true", "teacher_int8=true", "checkpoint=warm.ckpt",
+    "algorithm_name=CoTrain", "algorithm_name=Tent",
 ])
 def test_unported_training_options_raise(override, tmp_path):
     cfg = load_config("config_dvm_STiL", OVERRIDES + [

@@ -211,7 +211,7 @@ def run():
     return out
 
 
-def _compare_states(jstate, pstate, logs=True):
+def _compare_states(jstate, pstate, logs=True, param_atol=PARAM_ATOL):
     want = train_state_from_jax(jstate)
     if logs:
         for k in LOG_KEYS:
@@ -224,7 +224,7 @@ def _compare_states(jstate, pstate, logs=True):
         for k, v in want[name].items():
             if k.endswith("num_batches_tracked"):
                 continue   # the JAX package keeps no BN counters
-            assert_close(got[k], v.numpy(), 0, PARAM_ATOL, f"{name} {k}")
+            assert_close(got[k], v.numpy(), 0, param_atol, f"{name} {k}")
     for k in ("prototypes", "prototypes_sum", "prototypes_count"):
         assert_close(getattr(pstate, k), want[k].numpy(), 1e-9, 1e-12, k)
     assert_close(pstate.da.queue, want["da"][0].numpy(), 1e-9, 1e-12, "da")
