@@ -37,11 +37,13 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    train, val and test logs, both kernels' launch counts (53 x 16 each),
    steps/s, samples/s and peak memory.
 7. One train step with the kernels and one with the plain pair, from one
-   state: loss, gradients, parameters and BN running statistics side by
-   side.
-8. Profile of one train step: device busy time against the host's clock,
-   the shares of the two kernels and of BN's elementwise work, and the
-   top kernels.
+   state, in float32 (in bfloat16 a rounding flip of one channel's
+   statistics moves a whole step; the kernels' bfloat16 results are held
+   at every shape in phase 3): loss, gradients, parameters and BN running
+   statistics side by side, and the kernel run's launches.
+8. Profile of one bfloat16 train step: device busy time against the
+   host's clock, the shares of the two kernels and of BN's elementwise
+   work, and the top kernels.
 9. Timing: per shape, each kernel, its device-memory bound, the plain
    version and the library call that computes the same sums
    (``torch.batch_norm_stats``, ``torch.batch_norm_backward_reduce``;
@@ -77,6 +79,19 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     rows a step, one Adam step with a bfloat16 first moment): 212
     launches of each kernel a step, steps/s; then one step profiled as
     phase 8 profiles the single-batch step, beside phase 8's numbers.
+14. MMatch and Co-Training at full width (the three-head concat
+    backbone: the same ResNet-50 and tabular transformer, a 512-wide
+    concat fusion projected to 128, three heads over 286 classes):
+    ``config_dvm_CoTrain`` (EMAN teacher) trained with phase 6's flags
+    (53 x 16 launches of each kernel), its test-time slice (212
+    ``bn_stats`` launches) and ``Predictor`` as phase 12;
+    ``config_dvm_MMatch`` trained the same way, then two steps whose
+    memory bank and DA ring stay finite and whose bank position goes 0
+    -> 512 -> 0 (the enqueue truncates at the ring's end);
+    ``config_dvm_CoTrain_SAINT`` trained for 8 steps (53 x 8); and the
+    kernel-against-plain step of phase 7 for CoTrain, MMatch and
+    CoTrain at ``micro_batches=4`` (212 launches of each kernel); one
+    bfloat16 step of CoTrain and of MMatch profiled beside phase 8's.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -120,11 +135,11 @@ TRAIN_OVERRIDES = [
     "dataset=synthetic_dvm", "num_classes=286", "batch_size=512",
     "synthetic_labelled=512", "synthetic_unlabelled=3584",
     "synthetic_val=1024", "synthetic_test=1024", "evaluate=True",
-    "max_epochs=2", "start_epoch=0", "strict_prototypes=false",
+    "start_epoch=0", "strict_prototypes=false",
     "test_and_eval=true", "enable_progress_bar=false",
     "logdir=runs/chip_smoke_train",
 ]
-TRAIN_STEPS = 16            # 2 epochs of 3584 // 448 steps
+STEPS_PER_EPOCH = 8         # 3584 // 448
 STEP_LR = 1e-4              # lr_eval, for the side-by-side step
 
 
@@ -281,14 +296,18 @@ def check_bn_function(gen, dev) -> None:
 
 
 def train_full_width(config_name: str = "config_dvm_STiL", extra=(),
-                     per_step: int = 53, tag: str = "train") -> tuple:
-    """Phase 6 (and 12, 13): ``evaluate`` at full width; returns the
-    config, the kernels' launch counts of the run and its second epoch's
-    steps/s. ``per_step``: the launches of each kernel a step."""
+                     per_step: int = 53, tag: str = "train",
+                     epochs: int = 2) -> tuple:
+    """Phase 6 (and 12-14): ``evaluate`` at full width for ``epochs``
+    epochs of 8 steps; returns the config, the kernels' launch counts of
+    the run and its last epoch's steps/s. ``per_step``: the launches of
+    each kernel a step."""
     from stil_tta_torch.config import load_config
     from stil_tta_torch.ops.batch_norm import BNTrain, bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.evaluate import evaluate
-    cfg = load_config(config_name, TRAIN_OVERRIDES + list(extra))
+    cfg = load_config(config_name, TRAIN_OVERRIDES + list(extra)
+                      + [f"max_epochs={epochs}"])
+    n_steps = STEPS_PER_EPOCH * epochs
     logdir = Path(cfg.logdir)
     shutil.rmtree(logdir, ignore_errors=True)
     log(f"[{tag}] {cfg.algorithm_name}, micro_batches {cfg.micro_batches}, "
@@ -322,20 +341,20 @@ def train_full_width(config_name: str = "config_dvm_STiL", extra=(),
         log(f"[{tag}] epoch {r['_step']} val {json.dumps(r)}")
     log(f"[{tag}] results {json.dumps(results)}")
     sps = train[-1]["multimodal.train.samples_per_sec"]
-    log(f"[{tag}] second epoch: {sps / int(cfg.batch_size):.3f} steps/s, "
+    log(f"[{tag}] epoch {epochs}: {sps / int(cfg.batch_size):.3f} steps/s, "
         f"{sps:.1f} samples/s (8 steps and epoch_end, host clock); whole "
         f"run {wall:.1f} s (data synthesis, weight init, validation, "
         f"checkpoints, test); peak memory {peak / 2**30:.3f} GiB")
-    log(f"[{tag}] launches {launches} ({per_step} x {TRAIN_STEPS} = "
-        f"{per_step * TRAIN_STEPS} each); dy copied to channels_last in "
+    log(f"[{tag}] launches {launches} ({per_step} x {n_steps} = "
+        f"{per_step * n_steps} each); dy copied to channels_last in "
         f"{dy_copies} of {launches['bn_bwd_reduce']} BN backwards")
-    if any(n != per_step * TRAIN_STEPS for n in launches.values()):
+    if any(n != per_step * n_steps for n in launches.values()):
         raise SystemExit(f"{tag}: a kernel's launch count is off the "
                          "training path")
     values = [v for r in train + val for k, v in r.items()
               if k != "_step" and isinstance(v, (int, float))]
     values += list(results.values())
-    if len(train) != 2 or not all(math.isfinite(v) for v in values):
+    if len(train) != epochs or not all(math.isfinite(v) for v in values):
         raise SystemExit(f"{tag}: non-finite or missing training logs or "
                          "metrics")
     return cfg, launches, sps / int(cfg.batch_size)
@@ -364,21 +383,37 @@ def step_setup(cfg, dev, dtype=torch.bfloat16) -> tuple:
     return algo, algo.make_train_step(), batch
 
 
-def train_step_kernel_vs_plain(cfg, dev, dtype=torch.bfloat16) -> tuple:
-    """Phase 7 (and 12, 13): one train step (epoch 1, past start_epoch)
+def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53) -> None:
+    """Phase 7 (and 12-14): one train step (epoch 1, past start_epoch)
     from one state with the kernels and with the plain pair, cuDNN
-    deterministic, the net computing in ``dtype``. Returns the state, the
-    step and its batch, for the profile phase."""
+    deterministic, the net computing in float32; the kernel run must
+    launch each kernel ``per_step`` times.
+
+    Float32, not the path's bfloat16: in bfloat16 the two pairs' float32
+    sums, in different orders, now and then round a channel's bf16 mean
+    or scale differently, and one such flip moves the whole step (a
+    STiL_SAINT step's gradients 0.206 apart, rel L2), whichever kernel is
+    right. In float32 the pairs differ by summation order alone: on an
+    H100 80GB HBM3 at 700 W, gradients 3.1e-3 to 6.8e-3 apart (rel L2)
+    for STiL and STiL_SAINT, 1.7e-2 to 1.9e-2 for MMatch and Co-Training,
+    whose losses and gradients are far smaller. The gates (loss 1e-2
+    relative, gradients 0.1 and parameter updates 0.5 rel L2, BN
+    statistics 0.1) leave room over that, and a kernel whose sums were
+    wrong would move the gradients by order 1; the updates' gate is
+    wider because Adam's first step is about lr * sign(g), so a gradient
+    element near 0 can move its parameter by 2 lr. The kernels' bfloat16
+    results are held to their plain versions at every shape in phase
+    3."""
     from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
                                                bn_bwd_reduce_plain,
                                                bn_functions, bn_stats,
                                                bn_stats_plain)
     from stil_tta_torch.train.optim import set_learning_rate
-    algo, step, batch = step_setup(cfg, dev, dtype)
+    algo, step, batch = step_setup(cfg, dev, torch.float32)
     state = algo.init_state(0)
     net0 = copy.deepcopy(state.net.state_dict())
     p0 = _clone(state.net.named_parameters())
-    ema0 = copy.deepcopy(state.ema.state_dict())
+    ema0 = None if state.ema is None else copy.deepcopy(state.ema.state_dict())
     rng0 = torch.cuda.get_rng_state()
     torch.backends.cudnn.deterministic = True
     runs = {}
@@ -386,19 +421,23 @@ def train_step_kernel_vs_plain(cfg, dev, dtype=torch.bfloat16) -> tuple:
                       ("plain", (bn_stats_plain, bn_bwd_reduce_plain))):
         state = algo.init_state(0)
         state.net.load_state_dict(net0)
-        state.ema.load_state_dict(ema0)
+        if ema0 is not None:
+            state.ema.load_state_dict(ema0)
         torch.cuda.set_rng_state(rng0)
         set_learning_rate(state.optimizer, STEP_LR)
+        bn_stats.launches = bn_bwd_reduce.launches = 0
         with bn_functions(state.net, *fns):
             step(state, *batch, 1)
         torch.cuda.synchronize()
+        launches = (bn_stats.launches, bn_bwd_reduce.launches)
         net = state.net
         runs[name] = {
             "loss": float(state.log_sums["loss"]),
             "params": _clone(net.named_parameters()),
             "grads": _clone((k, p.grad) for k, p in net.named_parameters()),
             "stats": _clone((k, b) for k, b in net.named_buffers()
-                            if k.endswith(("running_mean", "running_var")))}
+                            if k.endswith(("running_mean", "running_var"))),
+            "launches": launches}
     torch.backends.cudnn.deterministic = False
     k, p = runs["kernel"], runs["plain"]
 
@@ -420,21 +459,19 @@ def train_step_kernel_vs_plain(cfg, dev, dtype=torch.bfloat16) -> tuple:
                        / p["stats"][n].clamp_min(1e-12)).max())
                 for n in k["stats"] if n.endswith("var"))
     log(f"[step] {cfg.algorithm_name} (micro_batches {cfg.micro_batches}, "
-        f"{str(dtype)[6:]}): one train step, kernels vs plain "
-        f"(epoch 1, lr {STEP_LR}): "
-        f"loss {k['loss']:.6f} vs {p['loss']:.6f} (rel {d_loss:.2e}, tol "
-        f"1e-2); gradients rel L2 {d_grad:.3e} (tol 0.1); parameter "
-        f"updates rel L2 {d_upd:.3e} (tol 0.5), largest element difference "
-        f"{d_upd_max:.3f} x lr; BN running stats max |d mean|/std "
-        f"{d_mean:.3e}, max |d var|/var {d_var:.3e} (tol 0.1)")
-    # bfloat16 activations: the pairs differ by float32 summation order,
-    # which flips bf16 roundings that carry through the layers; Adam's
-    # first step is about lr * sign(g), so a gradient element near 0 can
-    # move its parameter the other way (2 x lr)
+        f"float32): one train step, kernels vs plain (epoch 1, lr "
+        f"{STEP_LR}): loss {k['loss']:.6f} vs {p['loss']:.6f} (rel "
+        f"{d_loss:.2e}, tol 1e-2); gradients rel L2 {d_grad:.3e} (tol 0.1); "
+        f"parameter updates rel L2 {d_upd:.3e} (tol 0.5), largest element "
+        f"difference {d_upd_max:.3f} x lr; BN running stats max |d mean|/std "
+        f"{d_mean:.3e}, max |d var|/var {d_var:.3e} (tol 0.1); kernel "
+        f"launches (bn_stats, bn_bwd_reduce) {k['launches']} (expected "
+        f"{per_step} each), plain {p['launches']}")
+    if k["launches"] != (per_step, per_step) or p["launches"] != (0, 0):
+        raise SystemExit("kernel vs plain step: launch counts off the path")
     if (d_loss > 1e-2 or d_grad > 0.1 or d_upd > 0.5
             or max(d_mean, d_var) > 0.1):
         raise SystemExit("kernel and plain train steps disagree")
-    return state, step, batch
 
 
 def profile_train_step(state, step, batch, tag: str = "m=1") -> dict:
@@ -586,10 +623,10 @@ def tta_strategies_full_width() -> None:
         del algo, cache, src
 
 
-def saint_phase(dev) -> dict:
-    """Phase 12: STiL_SAINT's test-time slice, serving and training at
-    full width, and a train step with the kernels against the plain
-    pair; returns the kernels' launch counts of its paths."""
+def adapt_and_serve(config_name: str, tag: str) -> int:
+    """Phase 12 (and 14): ``test()`` with BN-adapt at full width on
+    ``config_name``, then ``adapt`` alone and ``Predictor`` at batch 512
+    on fresh weights; returns the ``bn_stats`` launches of ``test()``."""
     import numpy as np
     from stil_tta_torch.config import load_config
     from stil_tta_torch.data.loader import DeviceCache
@@ -597,8 +634,8 @@ def saint_phase(dev) -> dict:
     from stil_tta_torch.serve import Predictor
     from stil_tta_torch.train.test import build_algo, load_test_split, test
     from stil_tta_torch.tta import adapt
-    cfg = load_config("config_dvm_STiL_SAINT", TEST_OVERRIDES + [
-        "tta_strategy=bn_adapt", "logdir=runs/chip_smoke_saint"])
+    cfg = load_config(config_name, TEST_OVERRIDES + [
+        "tta_strategy=bn_adapt", f"logdir=runs/chip_smoke_{tag}"])
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     bn_stats.launches = 0
@@ -609,16 +646,17 @@ def saint_phase(dev) -> dict:
     adapt_launches = bn_stats.launches
     peak = torch.cuda.max_memory_allocated()
     batches = math.ceil(int(cfg.synthetic_test) / int(cfg.batch_size))
-    log(f"[saint] {cfg.algorithm_name} test(): metrics {json.dumps(metrics)}")
-    log(f"[saint] bn_stats launches {adapt_launches} (53 x {batches}); wall "
+    name = cfg.algorithm_name
+    log(f"[{tag}] {name} test(): metrics {json.dumps(metrics)}")
+    log(f"[{tag}] bn_stats launches {adapt_launches} (53 x {batches}); wall "
         f"{wall:.3f} s (data synthesis, weight init, BN-adapt, scoring); "
         f"peak memory {peak / 2**30:.3f} GiB")
     if adapt_launches != 53 * batches:
-        raise SystemExit("STiL_SAINT: bn_stats launch count off the "
-                         "BN-adapt path")
+        raise SystemExit(f"{name}: bn_stats launch count off the BN-adapt "
+                         "path")
     if not all(math.isfinite(v) and 0.0 <= v <= 1.0
                for v in metrics.values()):
-        raise SystemExit(f"STiL_SAINT: bad test metrics {metrics}")
+        raise SystemExit(f"{name}: bad test metrics {metrics}")
 
     src = load_test_split(cfg)
     algo = build_algo(cfg, src.field_lengths, "cuda")
@@ -635,25 +673,106 @@ def saint_phase(dev) -> dict:
     t0 = time.perf_counter()
     probs = pred(images, tabular)
     serve_s = time.perf_counter() - t0
-    log(f"[saint] BN-adapt alone {t_adapt * 1e3:.1f} ms ({batches} batches); "
+    log(f"[{tag}] BN-adapt alone {t_adapt * 1e3:.1f} ms ({batches} batches); "
         f"Predictor batch 512: {len(images)} samples in "
         f"{serve_s * 1e3:.1f} ms = {len(images) / serve_s:.1f} samples/s")
     if probs.shape != (len(images), int(cfg.num_classes)) \
             or not np.isfinite(probs).all() \
             or np.abs(probs.sum(1) - 1).max() > 1e-3:
-        raise SystemExit("STiL_SAINT: bad serving output")
-    del algo, cache, pred, src
+        raise SystemExit(f"{name}: bad serving output")
+    return adapt_launches
 
+
+def saint_phase(dev) -> dict:
+    """Phase 12: STiL_SAINT's test-time slice, serving and training at
+    full width, and a train step with the kernels against the plain
+    pair; returns the kernels' launch counts of its paths."""
+    adapt_launches = adapt_and_serve("config_dvm_STiL_SAINT", "saint")
     train_cfg, launches, _ = train_full_width(
         "config_dvm_STiL_SAINT", ["logdir=runs/chip_smoke_saint_train"],
         tag="saint-train")
-    # float32 activations: in bfloat16 the pairs' float32 summation orders
-    # flip the bf16 rounding of a channel's mean or scale now and then, and
-    # one flip moves the step's gradients by 5-25% (rel L2) whichever
-    # kernel is right; float32 keeps the comparison on the kernels
-    train_step_kernel_vs_plain(train_cfg, dev, torch.float32)
+    train_step_kernel_vs_plain(train_cfg, dev)
     return {"stil_saint_bn_adapt": {"bn_stats": adapt_launches},
             "stil_saint_train": launches}
+
+
+def check_mmatch_bank(cfg, dev) -> None:
+    """Phase 14: two MMatch steps at full width; the memory bank and the
+    DA ring stay finite and the bank's position follows
+    ``(ptr + min(512, 640 - ptr)) % 640``: 0 -> 512 -> 0."""
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    ptrs = [state.extra["ptr"]]
+    for _ in range(2):
+        step(state, *batch, 1)
+        ptrs.append(state.extra["ptr"])
+    torch.cuda.synchronize()
+    ex = state.extra
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        ex["embed_queue"], ex["probs_queue"], state.da.queue))
+    written = float(ex["probs_queue"].sum(0).gt(0).float().sum())
+    log(f"[pair] MMatch bank after 2 steps: positions {ptrs} (expected "
+        f"[0, 512, 0]), {written:.0f} of 640 target columns written, bank "
+        f"and DA ring finite {finite}, DA position {state.da.ptr}")
+    if ptrs != [0, 512, 0] or not finite or written != 640 \
+            or state.da.ptr != 2:
+        raise SystemExit("MMatch: the memory bank or the DA ring is off")
+
+
+def profile_beside(cfg, dev, single: dict, tag: str) -> dict:
+    """One bfloat16 step of ``cfg`` profiled as phase 8 profiles STiL's,
+    with its launches of each kernel, beside phase 8's numbers
+    (``single``)."""
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.optim import set_learning_rate
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    step(state, *batch, 1)
+    torch.cuda.synchronize()
+    if (bn_stats.launches, bn_bwd_reduce.launches) != (53, 53):
+        raise SystemExit(f"{tag}: {bn_stats.launches}, "
+                         f"{bn_bwd_reduce.launches} launches a step")
+    out = profile_train_step(state, step, batch, tag=tag)
+    log(f"[pair] {tag} step against STiL's (phase 8): host "
+        f"{out['host_ms']:.3f} vs {single['host_ms']:.3f} ms "
+        f"({out['host_ms'] / single['host_ms']:.3f}x), device busy "
+        f"{out['busy_ms']:.3f} vs {single['busy_ms']:.3f} ms, kernel "
+        f"launches {out['kernel_launches']} vs {single['kernel_launches']}")
+    return out
+
+
+def pair_phase(dev, single: dict) -> dict:
+    """Phase 14: the semi-multimodal pair at full width (Co-Training with
+    its EMAN teacher, MMatch, Co-Training with SAINT), with one step of
+    Co-Training and of MMatch profiled beside STiL's (``single``, phase
+    8); returns the kernels' launch counts of their paths."""
+    by_path = {}
+    _, by_path["cotrain_train"], _ = train_full_width(
+        "config_dvm_CoTrain", ["logdir=runs/chip_smoke_cotrain_train"],
+        tag="cotrain-train")
+    by_path["cotrain_bn_adapt"] = {
+        "bn_stats": adapt_and_serve("config_dvm_CoTrain", "cotrain")}
+    cfg, by_path["mmatch_train"], _ = train_full_width(
+        "config_dvm_MMatch", ["logdir=runs/chip_smoke_mmatch_train"],
+        tag="mmatch-train")
+    check_mmatch_bank(cfg, dev)
+    _, by_path["cotrain_saint_train"], _ = train_full_width(
+        "config_dvm_CoTrain_SAINT",
+        ["logdir=runs/chip_smoke_cotrain_saint_train"],
+        tag="cotrain-saint-train", epochs=1)
+    from stil_tta_torch.config import load_config
+    for name, tag in (("config_dvm_CoTrain", "CoTrain"),
+                      ("config_dvm_MMatch", "MMatch")):
+        cfg = load_config(name, TRAIN_OVERRIDES)
+        train_step_kernel_vs_plain(cfg, dev)
+        profile_beside(cfg, dev, single, tag)
+    train_step_kernel_vs_plain(
+        load_config("config_dvm_CoTrain",
+                    TRAIN_OVERRIDES + [f"micro_batches={MICRO}"]),
+        dev, per_step=53 * MICRO)
+    return by_path
 
 
 def fast_profile_phase(dev, single: dict) -> dict:
@@ -666,8 +785,7 @@ def fast_profile_phase(dev, single: dict) -> dict:
              "logdir=runs/chip_smoke_fast"]
     cfg, launches, sps = train_full_width(
         "config_dvm_STiL", extra, per_step=53 * MICRO, tag="fast")
-    # float32: see saint_phase
-    train_step_kernel_vs_plain(cfg, dev, torch.float32)
+    train_step_kernel_vs_plain(cfg, dev, per_step=53 * MICRO)
     algo, step, batch = step_setup(cfg, dev)
     state = algo.init_state(0)
     set_learning_rate(state.optimizer, STEP_LR)
@@ -1010,12 +1128,16 @@ def main() -> int:
     clock.lap("6 training")
 
     # ---- 7. one train step with the kernels and with the plain pair
-    state, step, batch = train_step_kernel_vs_plain(train_cfg, dev)
+    train_step_kernel_vs_plain(train_cfg, dev)
     clock.lap("7 kernel vs plain step")
 
-    # ---- 8. profile of one train step
+    # ---- 8. profile of one train step (bfloat16, the path's numerics)
+    from stil_tta_torch.train.optim import set_learning_rate
+    algo, step, batch = step_setup(train_cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
     single = profile_train_step(state, step, batch)
-    del state, step, batch
+    del algo, state, step, batch
     clock.lap("8 step profile")
 
     # ---- 9. timing per shape (bfloat16, the path's dtype)
@@ -1135,6 +1257,10 @@ def main() -> int:
     # ---- 13. the fast numerics profile
     by_path["fast_profile_train"] = fast_profile_phase(dev, single)
     clock.lap("13 fast profile")
+
+    # ---- 14. the semi-multimodal pair at full width
+    by_path.update(pair_phase(dev, single))
+    clock.lap("14 MMatch and Co-Training")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

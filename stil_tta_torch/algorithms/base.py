@@ -1,17 +1,22 @@
 """Shared semi-supervised machinery, the port of the part of
-``stil_tta_tpu/algorithms/base.py`` STiL uses: the EMAN teacher update,
-the distribution-alignment ring, pseudo-label sharpening, and the chunk
-loop of the micro-batched train steps."""
+``stil_tta_tpu/algorithms/base.py`` the ported algorithms use: the EMAN
+teacher update, the distribution-alignment ring, pseudo-label
+sharpening, the chunk loop of the micro-batched train steps, the seeded
+weight init and the contrastive views of a train batch."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Tuple
 
 import torch
 from torch import nn
 
+from stil_tta_torch.data.corrupt import corrupt_tabular
 from stil_tta_torch.losses.common import at_least_f32
+from stil_tta_torch.models.resnet import Conv2d
+from stil_tta_torch.models.saint import SAINTEncoder
 
 Tensor = torch.Tensor
 
@@ -94,3 +99,51 @@ def accumulate_chunks(optimizer: torch.optim.Optimizer, m: int,
     grads = [p.grad for group in optimizer.param_groups
              for p in group["params"] if p.grad is not None]
     torch._foreach_div_(grads, float(m))
+
+
+@torch.no_grad()
+def init_weights(net: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights in the JAX package's init families: convs
+    kaiming-normal (fan_out, ReLU), dense layers truncated-normal with
+    std sqrt(1/fan_in) (SAINT's stacked per-column MLPs too), embeddings
+    and tokens truncated-normal std 0.02, biases zero, BatchNorm scale 1 /
+    shift 0. ``generator`` lives on the weights' device."""
+    def normal_(t: Tensor, std: float) -> None:
+        t.copy_(torch.randn(t.shape, generator=generator,
+                            device=t.device).clamp_(-2.0, 2.0) * std)
+
+    for mod in net.modules():
+        if isinstance(mod, Conv2d):
+            cout, _, kh, kw = mod.weight.shape
+            mod.weight.copy_(torch.randn(
+                mod.weight.shape, generator=generator,
+                device=mod.weight.device) * math.sqrt(2.0 / (cout * kh * kw)))
+        elif isinstance(mod, nn.Linear):
+            normal_(mod.weight, math.sqrt(1.0 / mod.in_features))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            normal_(mod.weight, 0.02)
+        elif isinstance(mod, SAINTEncoder):
+            normal_(mod.con_mlp_w1, 1.0)
+            normal_(mod.con_mlp_w2, math.sqrt(1.0 / mod.con_mlp_w2.shape[1]))
+            mod.con_mlp_b1.zero_()
+            mod.con_mlp_b2.zero_()
+    for name, p in net.named_parameters():
+        if name.endswith(("cls_token", "mask_special_token")):
+            normal_(p, 0.02)
+
+
+def draw_views(cfg, aug_train, gen: torch.Generator, bl: dict, bu: dict,
+               marg_l: Tensor, marg_u: Tensor):
+    """Augmented image view and corrupted tabular view of each stream
+    (``ContrastiveImagingAndTabularDataset.__getitem__``: the image is
+    augmented with probability augmentation_rate, the row corrupted at
+    corruption_rate), drawn from ``gen``: (img_l, tab_l, img_u, tab_u)."""
+    rate = float(cfg.augmentation_rate)
+    crate = float(cfg.corruption_rate)
+    img_l = aug_train(gen, bl["images"], rate)
+    img_u = aug_train(gen, bu["images"], rate)
+    tab_l = corrupt_tabular(gen, bl["tabular"], marg_l, crate)
+    tab_u = corrupt_tabular(gen, bu["tabular"], marg_u, crate)
+    return img_l, tab_l, img_u, tab_u

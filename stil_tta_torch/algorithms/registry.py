@@ -1,17 +1,28 @@
 """Algorithm name -> class, the port's counterpart of
 ``stil_tta_tpu/algorithms/registry.py``, holding the algorithms ported so
-far. Any other name raises ``NotImplementedError``."""
+far. A name the JAX registry knows and the port does not have yet raises
+``NotImplementedError``; any other name raises ``ValueError``, as the JAX
+registry does."""
 
 from __future__ import annotations
 
+from stil_tta_torch.algorithms.cotrain import CoTrain, CoTrainSAINT
+from stil_tta_torch.algorithms.mmatch import MMatch
 from stil_tta_torch.algorithms.stil import STiL, STiL_SAINT
 
-ALGORITHMS = {"STiL": STiL, "STiL_SAINT": STiL_SAINT}
+ALGORITHMS = {"STiL": STiL, "STiL_SAINT": STiL_SAINT, "MMatch": MMatch,
+              "CoTrain_Pseudo": CoTrain,
+              "CoTrain_Pseudo_SAINT": CoTrainSAINT}
+
+# the JAX registry's other names (``registry.py:10-41``)
+UNPORTED = ("SimMatch", "CoMatch", "FreeMatch", "Supervised", "TabularEval")
 
 
 def get_algorithm(name: str) -> type:
-    if name not in ALGORITHMS:
+    if name in ALGORITHMS:
+        return ALGORITHMS[name]
+    if name in UNPORTED:
         raise NotImplementedError(
             f"algorithm {name!r} is not ported to stil_tta_torch yet "
             f"(ROADMAP.md); ported: {', '.join(ALGORITHMS)}")
-    return ALGORITHMS[name]
+    raise ValueError(f"Algorithm name not found: {name}")

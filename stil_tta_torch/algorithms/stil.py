@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -29,9 +28,9 @@ from torch import nn
 
 from stil_tta_torch.algorithms.base import (DAState, accumulate_chunks,
                                             distribution_alignment,
-                                            ema_update, sharpen)
+                                            draw_views, ema_update,
+                                            init_weights, sharpen)
 from stil_tta_torch.data.augment import contrastive_pipeline, default_pipeline
-from stil_tta_torch.data.corrupt import corrupt_tabular
 from stil_tta_torch.data.loader import gather_batch, marginal_table
 from stil_tta_torch.losses.clip_loss import clip_loss, l2norm
 from stil_tta_torch.losses.club import CLUBMean, club_losses
@@ -41,8 +40,6 @@ from stil_tta_torch.losses.prototype_loss import prototype_loss
 from stil_tta_torch.models.backbones import DisCoBackbone
 from stil_tta_torch.models.layers import (Linear, SimCLRProjectionHead,
                                           acc_dtype)
-from stil_tta_torch.models.resnet import Conv2d
-from stil_tta_torch.models.saint import SAINTEncoder
 from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_compute, accuracy_init,
                                         accuracy_update, auroc_compute,
@@ -128,39 +125,6 @@ class STiLNet(nn.Module):
                 "feat_m": _l2norm(self.projector_multimodal(feat_m_raw))}
 
 
-@torch.no_grad()
-def init_weights(net: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights in the JAX package's init families: convs
-    kaiming-normal (fan_out, ReLU), dense layers truncated-normal with
-    std sqrt(1/fan_in) (SAINT's stacked per-column MLPs too), embeddings
-    and tokens truncated-normal std 0.02, biases zero, BatchNorm scale 1 /
-    shift 0. ``generator`` lives on the weights' device."""
-    def normal_(t: Tensor, std: float) -> None:
-        t.copy_(torch.randn(t.shape, generator=generator,
-                            device=t.device).clamp_(-2.0, 2.0) * std)
-
-    for mod in net.modules():
-        if isinstance(mod, Conv2d):
-            cout, _, kh, kw = mod.weight.shape
-            mod.weight.copy_(torch.randn(
-                mod.weight.shape, generator=generator,
-                device=mod.weight.device) * math.sqrt(2.0 / (cout * kh * kw)))
-        elif isinstance(mod, nn.Linear):
-            normal_(mod.weight, math.sqrt(1.0 / mod.in_features))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            normal_(mod.weight, 0.02)
-        elif isinstance(mod, SAINTEncoder):
-            normal_(mod.con_mlp_w1, 1.0)
-            normal_(mod.con_mlp_w2, math.sqrt(1.0 / mod.con_mlp_w2.shape[1]))
-            mod.con_mlp_b1.zero_()
-            mod.con_mlp_b2.zero_()
-    for name, p in net.named_parameters():
-        if name.endswith(("cls_token", "mask_special_token")):
-            normal_(p, 0.02)
-
-
 @dataclasses.dataclass
 class STiLState:
     """What a STiL run carries from step to step (the JAX package's
@@ -208,6 +172,7 @@ class STiL:
 
     name = "STiL"
     tabular_encoder = "transformer"
+    entropy_tta = True  # Tent, EATA and SAR read the out_m head
 
     def __init__(self, cfg, field_lengths: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
@@ -282,20 +247,6 @@ class STiL:
         state.log_sums = {k: torch.zeros((), dtype=adt, device=dev)
                           for k in LOG_KEYS}
         state.log_count = torch.zeros((), dtype=adt, device=dev)
-
-    def _views(self, gen: torch.Generator, bl: dict, bu: dict,
-               marg_l: Tensor, marg_u: Tensor):
-        """Augmented image view and corrupted tabular view of each stream
-        (``ContrastiveImagingAndTabularDataset.__getitem__``: the image
-        is augmented with probability augmentation_rate, the row
-        corrupted at corruption_rate)."""
-        rate = float(self.cfg.augmentation_rate)
-        crate = float(self.cfg.corruption_rate)
-        img_l = self.aug_train(gen, bl["images"], rate)
-        img_u = self.aug_train(gen, bu["images"], rate)
-        tab_l = corrupt_tabular(gen, bl["tabular"], marg_l, crate)
-        tab_u = corrupt_tabular(gen, bu["tabular"], marg_u, crate)
-        return img_l, tab_l, img_u, tab_u
 
     # ------------------------------------------------------------------
     def make_train_step(self):
@@ -447,9 +398,9 @@ class STiL:
             """The rows of ``idx_l`` / ``idx_u``, their views concatenated
             (labelled first) and the missing-column masks, if any."""
             bl, bu = gather_batch(cache_l, idx_l), gather_batch(cache_u, idx_u)
-            img_l, tab_l, img_u, tab_u = self._views(
-                state.generator, bl, bu, marginal_table(cache_l),
-                marginal_table(cache_u))
+            img_l, tab_l, img_u, tab_u = draw_views(
+                cfg, self.aug_train, state.generator, bl, bu,
+                marginal_table(cache_l), marginal_table(cache_u))
             missing = None
             if "missing" in bl and "missing" in bu:
                 missing = torch.cat([bl["missing"], bu["missing"]], dim=0)

@@ -1,5 +1,7 @@
-"""STiL's disentangled contrastive fusion backbone (the part of
-``stil_tta_tpu/models/backbones.py`` the test-time path uses).
+"""The fusion backbones of the port (the part of
+``stil_tta_tpu/models/backbones.py`` ported so far): STiL's
+disentangled contrastive backbone and the three-head concat backbone of
+MMatch and Co-Training (:class:`SemiMultimodalBackbone`, at the end).
 
 :class:`DisCoBackbone` (``STiLModel_backbone.py:35-165``): image tokens
 from the ResNet stage-4 map, tabular tokens (the tabular transformer, or
@@ -12,7 +14,7 @@ categorical columns first.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -125,3 +127,73 @@ class DisCoBackbone(nn.Module):
             "x_ai": f(x_ai), "x_st_enhance": f(x_st_enh),
             "x_st": f(x_st_pool), "x_at": f(x_at), "x_c": f(x_c),
         }
+
+
+class SemiMultimodalBackbone(nn.Module):
+    """Concat fusion with three classifiers, the backbone of MMatch and
+    Co-Training (``Multimodal_model.py:36-122``; the JAX package's
+    ``SemiMultimodalBackbone``): the pooled image features, the tabular
+    CLS token (the tabular transformer's, or SAINT's 32-wide one with
+    ``tabular_encoder="saint"``), ``image_proj`` and, when the tabular
+    width differs from the fusion width, ``tabular_proj``; their concat
+    through ``multimodal_proj`` to ``projection_dim``; one linear head on
+    it, one on the image features, one on the CLS token. The projections
+    compute in ``dtype``, the heads in at least float32."""
+
+    def __init__(self, model: str, field_lengths: Sequence[int],
+                 num_classes: int, projection_dim: int = 128,
+                 tabular_embedding_dim: int = 512,
+                 multimodal_embedding_dim: int = 512,
+                 tabular_num_layers: int = 4, embedding_dropout: float = 0.0,
+                 drop_rate: float = 0.0, tabular_encoder: str = "transformer",
+                 saint_ff_dropout: float = 0.8,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cat_lengths, con_lengths = split_field_lengths(field_lengths)
+        self.encoder_imaging = image_encoder(model, dtype=dtype)
+        if tabular_encoder == "saint":
+            self.encoder_tabular = SAINTEncoder(
+                cat_lengths, len(con_lengths), token_dim=32, depth=1,
+                heads=4, ff_dropout=saint_ff_dropout, dtype=dtype)
+            tab_dim = 32
+        elif tabular_encoder == "transformer":
+            self.encoder_tabular = TabularTransformerEncoder(
+                cat_lengths, con_lengths,
+                embedding_dim=tabular_embedding_dim,
+                num_layers=tabular_num_layers,
+                embedding_dropout=embedding_dropout, drop_rate=drop_rate,
+                dtype=dtype)
+            tab_dim = tabular_embedding_dim
+        else:
+            raise ValueError(f"unknown tabular_encoder {tabular_encoder!r}")
+        hid = multimodal_embedding_dim
+        img_dim = EMBEDDING_DIM[model]
+        self.image_proj = Linear(img_dim, hid, dtype=dtype)
+        # the JAX module compares the configured tabular width, not the
+        # encoder's: SAINT's 32-wide CLS token goes in unprojected at the
+        # default widths
+        self.tabular_proj = (Linear(tab_dim, hid, dtype=dtype)
+                             if tabular_embedding_dim != hid else None)
+        proj_t = hid if self.tabular_proj is not None else tab_dim
+        self.multimodal_proj = Linear(hid + proj_t, projection_dim,
+                                      dtype=dtype)
+        head_t = acc_dtype(dtype)
+        self.classifier_multimodal = Linear(projection_dim, num_classes,
+                                            dtype=head_t)
+        self.classifier_imaging = Linear(img_dim, num_classes, dtype=head_t)
+        self.classifier_tabular = Linear(tab_dim, num_classes, dtype=head_t)
+        self.head_dtype = head_t
+
+    def forward(self, image: Tensor, tabular: Tensor
+                ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """``(out_m, out_i, out_t, x_m)``, all in at least float32."""
+        x_i = self.encoder_imaging(image)[0]
+        t_cls = self.encoder_tabular(tabular)[:, 0]
+        proj_t = (self.tabular_proj(t_cls) if self.tabular_proj is not None
+                  else t_cls)
+        x_m = self.multimodal_proj(torch.cat(
+            [self.image_proj(x_i), proj_t.to(x_i.dtype)], dim=1))
+        f = lambda t: t.to(self.head_dtype)  # noqa: E731
+        return (self.classifier_multimodal(f(x_m)),
+                self.classifier_imaging(f(x_i)),
+                self.classifier_tabular(f(t_cls)), f(x_m))

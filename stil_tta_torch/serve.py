@@ -8,8 +8,9 @@ native-format split into a CSV:
     python -m stil_tta_torch.serve --config-name config_dvm_STiL \
         --checkpoint model.ckpt --source data/test --out predictions.csv
 
-Serves STiL and STiL_SAINT. The JAX package's data-parallel and int8
-serving options are still to port (ROADMAP.md).
+Serves every algorithm of the registry (STiL, STiL_SAINT, MMatch,
+CoTrain_Pseudo, CoTrain_Pseudo_SAINT). The JAX package's data-parallel
+and int8 serving options are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,8 +52,11 @@ class Predictor:
                 tabular: torch.Tensor) -> torch.Tensor:
         """One batch already on the card -> (B, C) float32 probabilities."""
         net = self.algo.net.eval()
-        out = net(self.algo.aug_eval(images), tabular)["out_m"]
-        return torch.softmax(out.float(), dim=1)
+        out = net(self.algo.aug_eval(images), tabular)
+        # STiL's nets return a dict of heads, MMatch's and Co-Training's
+        # a tuple led by the multimodal head
+        logits = out["out_m"] if isinstance(out, dict) else out[0]
+        return torch.softmax(logits.float(), dim=1)
 
     def __call__(self, images: np.ndarray,
                  tabular: np.ndarray) -> np.ndarray:

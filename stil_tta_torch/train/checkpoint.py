@@ -1,12 +1,15 @@
-"""Save and restore a STiL train state, the port's counterpart of
+"""Save and restore a train state (STiL's ``STiLState`` or the comparison
+families' ``MatchState``), the port's counterpart of
 ``stil_tta_tpu/train/checkpoint.py``.
 
 A checkpoint is one file, ``<directory>/<name>``, written by
-``torch.save``: the state dicts of the net, the EMA backbone and the
-optimizer, the prototypes and their sums, the DA ring, the train metric
-states, the loss sums, the step count, and the states of the step's
-generator and of the device's default generator (the one the fusion
-dropout draws from), so :func:`restore_checkpoint` resumes a run exactly.
+``torch.save``: the state dicts of the net, the EMA backbone (if any)
+and the optimizer, the state's buffers (STiL's prototypes and their
+sums; a family's ``extra``, MMatch's memory bank and its write
+position), the DA ring, the train metric states, the loss sums, the step
+count, and the states of the step's generator and of the device's
+default generator (the one the dropout layers draw from), so
+:func:`restore_checkpoint` resumes a run exactly.
 The config goes beside it as ``<name>_config.json``, as in the JAX
 package. The format is the port's own: an Orbax checkpoint of the JAX
 package does not load here, nor the reverse.
@@ -25,7 +28,9 @@ import torch
 from stil_tta_torch.algorithms.base import DAState
 from stil_tta_torch.ops.metrics import AccuracyState, AUROCState
 
-_BUFFERS = ("prototypes", "prototypes_sum", "prototypes_count", "log_count")
+# the buffers a state may hold; each is saved where the state has it
+_BUFFERS = ("prototypes", "prototypes_sum", "prototypes_count", "log_count",
+            "extra")
 _METRICS = {"acc_train": AccuracyState, "acc_train_u": AccuracyState,
             "auc_train": AUROCState, "auc_train_u": AUROCState}
 
@@ -45,12 +50,12 @@ def _set_default_rng_state(device: torch.device, s: torch.Tensor) -> None:
 
 def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
                     = None, name: str = "best") -> Path:
-    """Write ``state`` (a :class:`~stil_tta_torch.algorithms.stil.
-    STiLState`) to ``<directory>/<name>`` and ``config`` to
+    """Write ``state`` (a ``STiLState`` or a ``MatchState``) to
+    ``<directory>/<name>`` and ``config`` to
     ``<directory>/<name>_config.json``; returns the checkpoint's path."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    device = state.prototypes.device
+    device = state.log_count.device
     payload = {
         "net": state.net.state_dict(),
         "ema": None if state.ema is None else state.ema.state_dict(),
@@ -62,8 +67,9 @@ def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
         "log_sums": state.log_sums,
         "step": state.step,
     }
-    payload.update({k: getattr(state, k) for k in _BUFFERS})
-    payload.update({k: None if getattr(state, k) is None
+    payload.update({k: getattr(state, k) for k in _BUFFERS
+                    if hasattr(state, k)})
+    payload.update({k: None if getattr(state, k, None) is None
                     else dataclasses.asdict(getattr(state, k))
                     for k in _METRICS})
     path = directory / name
@@ -78,9 +84,9 @@ def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
 
 def restore_checkpoint(directory: os.PathLike, state, name: str = "best"):
     """Load ``<directory>/<name>`` into ``state`` in place (a state built
-    by ``STiL.init_state`` for the same config) and return it. Raises
-    ``FileNotFoundError`` when there is no such checkpoint."""
-    device = state.prototypes.device
+    by the algorithm's ``init_state`` for the same config) and return it.
+    Raises ``FileNotFoundError`` when there is no such checkpoint."""
+    device = state.log_count.device
     payload = torch.load(Path(directory) / name, map_location=device,
                          weights_only=True)
     state.net.load_state_dict(payload["net"])
@@ -94,9 +100,12 @@ def restore_checkpoint(directory: os.PathLike, state, name: str = "best"):
     state.log_sums = dict(payload["log_sums"])
     state.step = int(payload["step"])
     for k in _BUFFERS:
-        setattr(state, k, payload[k])
+        if hasattr(state, k):
+            setattr(state, k, payload[k])
     for k, cls in _METRICS.items():
-        setattr(state, k, None if payload[k] is None else cls(**payload[k]))
+        if hasattr(state, k):
+            setattr(state, k,
+                    None if payload[k] is None else cls(**payload[k]))
     return state
 
 

@@ -1,5 +1,5 @@
 """JAX variable tree -> reference-layout torch ``state_dict``, and a JAX
-``STiLState`` -> the port's train state.
+train state (``STiLState``, ``MatchState``) -> the port's train state.
 
 The port's own copy of
 ``stil_tta_tpu/train/convert.py:export_torch_state_dict`` (the SAINT
@@ -245,7 +245,8 @@ def load_saint_state_dict(encoder: torch.nn.Module,
     from stil_tta_torch.models.saint import SAINTEncoder
     if not isinstance(encoder, SAINTEncoder):
         raise ValueError("checkpoint_SAINT needs a SAINT tabular encoder "
-                         "(algorithm_name=STiL_SAINT)")
+                         "(algorithm_name=STiL_SAINT or "
+                         "CoTrain_Pseudo_SAINT)")
     keys = list(encoder.state_dict())
     missing = [k for k in keys if k not in state_dict]
     if missing:
@@ -256,40 +257,60 @@ def load_saint_state_dict(encoder: torch.nn.Module,
 
 
 def train_state_from_jax(jax_state) -> Dict[str, object]:
-    """The parts of a JAX ``STiLState`` a port train state holds, as
-    torch tensors: ``net`` (params and batch_stats, ``state_dict`` of
-    ``STiLNet``), ``ema`` (the EMA backbone's ``ema_params`` /
-    ``ema_batch_stats``, ``state_dict`` of ``DisCoBackbone``, or None),
-    ``prototypes``, ``prototypes_sum``, ``prototypes_count`` and ``da``
-    (``(queue, ptr)`` or None). Optimizer moments are not carried."""
+    """The parts of a JAX train state a port train state holds, as torch
+    tensors: ``net`` (params and batch_stats, ``state_dict`` of the net),
+    ``ema`` (the EMA backbone's ``ema_params`` / ``ema_batch_stats`` as
+    the ``state_dict`` of the backbone, or None) and ``da`` (``(queue,
+    ptr)`` or None); of a ``STiLState`` also ``prototypes``,
+    ``prototypes_sum`` and ``prototypes_count``; of a ``MatchState``
+    ``extra`` (its buffers, write positions as ints). STiL's EMA tree is
+    the backbone's, a ``MatchState``'s the whole net's (``{"backbone":
+    ...}``). Optimizer moments are not carried."""
     def t(a):
         return torch.from_numpy(np.array(a))
 
     out = {"net": state_dict_from_jax(jax_state.params,
                                       jax_state.batch_stats), "ema": None}
     if jax_state.ema_params is not None:
-        ema = state_dict_from_jax({"backbone": jax_state.ema_params},
-                                  {"backbone": jax_state.ema_batch_stats})
+        ema_p, ema_bs = jax_state.ema_params, jax_state.ema_batch_stats
+        if "backbone" not in ema_p:
+            ema_p, ema_bs = {"backbone": ema_p}, {"backbone": ema_bs}
+        ema = state_dict_from_jax(ema_p, ema_bs)
         out["ema"] = {k[len("model."):]: v for k, v in ema.items()}
-    for k in ("prototypes", "prototypes_sum", "prototypes_count"):
-        out[k] = t(getattr(jax_state, k))
+    if hasattr(jax_state, "extra"):
+        out["extra"] = {k: (int(np.asarray(v)) if np.ndim(v) == 0 else t(v))
+                        for k, v in (jax_state.extra or {}).items()}
+    else:
+        for k in ("prototypes", "prototypes_sum", "prototypes_count"):
+            out[k] = t(getattr(jax_state, k))
     da = jax_state.da
     out["da"] = None if da is None else (t(da.queue), int(np.asarray(da.ptr)))
     return out
 
 
 def load_train_state(state, carried: Dict[str, object]) -> None:
-    """Load :func:`train_state_from_jax`'s output into a port
-    ``STiLState`` in place, strictly, keeping each tensor's dtype and
-    device."""
+    """Load :func:`train_state_from_jax`'s output into a port train state
+    (``STiLState`` or ``MatchState``) in place, strictly, keeping each
+    tensor's dtype and device; the state's buffers are copies, so one
+    ``carried`` can start several states."""
     from stil_tta_torch.algorithms.base import DAState
+
+    def like(new, old):   # a copy: the steps update buffers in place
+        return new.to(dtype=old.dtype, device=old.device, copy=True)
+
     state.net.load_state_dict(carried["net"], strict=True)
     if state.ema is not None:
         state.ema.load_state_dict(carried["ema"], strict=True)
-    for k in ("prototypes", "prototypes_sum", "prototypes_count"):
-        old = getattr(state, k)
-        setattr(state, k, carried[k].to(dtype=old.dtype, device=old.device))
+    if "extra" in carried:
+        if set(carried["extra"]) != set(state.extra):
+            raise KeyError(f"extra buffers {sorted(carried['extra'])} do "
+                           f"not match the state's {sorted(state.extra)}")
+        state.extra = {k: (v if isinstance(v, int)
+                           else like(v, state.extra[k]))
+                       for k, v in carried["extra"].items()}
+    else:
+        for k in ("prototypes", "prototypes_sum", "prototypes_count"):
+            setattr(state, k, like(carried[k], getattr(state, k)))
     if state.da is not None:
         queue, ptr = carried["da"]
-        state.da = DAState(queue.to(dtype=state.da.queue.dtype,
-                                    device=state.da.queue.device), ptr)
+        state.da = DAState(like(queue, state.da.queue), ptr)

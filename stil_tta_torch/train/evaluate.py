@@ -1,18 +1,21 @@
 """Training loop ("evaluate" in the reference's vocabulary) and
 validation / test scoring, the port of ``stil_tta_tpu/train/evaluate.py``.
 
-:func:`evaluate` trains STiL on the labelled and unlabelled splits, held
-on the device (:class:`DeviceCache`): the unlabelled stream defines the
-epoch (dropped last), the labelled stream cycles; both samplers are
-seeded per epoch, so a resumed run replays the uninterrupted one. Each
-epoch validates, keeps the best checkpoint and stops early as the
-reference does; with ``test_and_eval`` the best checkpoint is then
-scored on the test split. The algorithms are STiL and STiL_SAINT
-(``algorithms/registry.py``); ``checkpoint_SAINT`` loads a
-somepago/saint-layout ``.pth`` into STiL_SAINT's tabular encoder. Not
-ported (each raises ``NotImplementedError``): ``host_stream``,
-``weighted_sampler``, a ``.ckpt``/``.pth`` warm start, ``teacher_int8``
-and the encoder freeze of ``stil_tta_torch.train.optim``.
+:func:`evaluate` trains an algorithm of the registry
+(``algorithms/registry.py``: STiL, STiL_SAINT, MMatch, CoTrain_Pseudo,
+CoTrain_Pseudo_SAINT) on the labelled and unlabelled splits, held on the
+device (:class:`DeviceCache`): the unlabelled stream defines the epoch
+(dropped last), the labelled stream cycles; both samplers are seeded per
+epoch, so a resumed run replays the uninterrupted one. Each epoch
+validates, keeps the best checkpoint and stops early as the reference
+does; with ``test_and_eval`` the best checkpoint is then scored on the
+test split. ``checkpoint_SAINT`` loads a somepago/saint-layout ``.pth``
+into the student's SAINT tabular encoder (STiL_SAINT,
+CoTrain_Pseudo_SAINT). Not ported (each raises ``NotImplementedError``):
+``host_stream``, ``weighted_sampler``, a ``.ckpt``/``.pth`` warm start,
+the encoder freeze of ``stil_tta_torch.train.optim``, and STiL's
+``teacher_int8`` (the other families accept and ignore it, as the JAX
+package does).
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -110,7 +113,9 @@ def run_validation(eval_step, cache: dict, batch_size: int,
                    num_classes: int, prefix: str = "eval.val",
                    limit_batches=None) -> Dict[str, float]:
     """Score ``cache`` in order, batch by batch (the tail batch padded to
-    ``batch_size`` with weight-0 rows), and reduce the metrics."""
+    ``batch_size`` with weight-0 rows), and reduce the metrics: the
+    three heads' accuracy and AUROC, and the val losses where the eval
+    step gives them (STiL's)."""
     n = int(cache["labels"].shape[0])
     device = cache["labels"].device
     sampler = EpochSampler(n, batch_size, shuffle=False, drop_last=False)
@@ -132,7 +137,7 @@ def run_validation(eval_step, cache: dict, batch_size: int,
         for k in probs:
             probs[k].append(out[f"prob_{k}"].float().cpu().numpy()[keep])
         ys.append(out["labels"].cpu().numpy()[keep])
-        for k, v in out["losses"].items():
+        for k, v in out.get("losses", {}).items():
             # retrieval accuracy is skipped for non-full batches, as the
             # reference does (``STiLModel.py:437``)
             if k in ("top1", "top5") and not keep.all():
@@ -154,7 +159,9 @@ def run_validation(eval_step, cache: dict, batch_size: int,
 
 
 def _refuse_unported(cfg) -> None:
-    """Raise for the training options the port does not have yet."""
+    """Raise for the training options the port does not have yet, for
+    every algorithm; an algorithm's own refusals (STiL's
+    ``teacher_int8``) are its constructor's."""
     from stil_tta_torch.algorithms.registry import get_algorithm
     get_algorithm(cfg.algorithm_name)
     unported = {
@@ -163,7 +170,6 @@ def _refuse_unported(cfg) -> None:
         "a .ckpt/.pth warm start": (
             not cfg.resume_training
             and str(cfg.checkpoint or "").endswith((".ckpt", ".pth"))),
-        "teacher_int8": bool(cfg.teacher_int8),
     }
     for what, asked in unported.items():
         if asked:
@@ -178,7 +184,7 @@ def _refuse_unported(cfg) -> None:
 
 def evaluate(cfg, logdir: Optional[Path] = None,
              device="cuda") -> Dict[str, float]:
-    """Train STiL or STiL_SAINT (``trainers/evaluate.py:93-219``); returns
+    """Train ``algorithm_name`` (``trainers/evaluate.py:93-219``); returns
     ``{"best_val": ...}`` and, with ``test_and_eval``, the test metrics.
     ``resume_training`` with ``checkpoint=<dir>/checkpoint_last`` resumes
     from a checkpoint written by ``checkpoint_every_n_epochs``."""

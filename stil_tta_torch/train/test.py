@@ -1,11 +1,11 @@
 """Test entry point with test-time adaptation (the port of
 ``stil_tta_tpu/train/test.py``).
 
-Builds the test split, the net of STiL or STiL_SAINT on the card (seeded
+Builds the test split, the net of ``algorithm_name`` on the card (seeded
 random weights, or a reference-layout ``.ckpt``), adapts it with
-``tta: true`` (BN-adapt, Tent, EATA or SAR), scores the three heads and
-writes ``metrics.jsonl`` and ``test_results.csv`` under the run's log
-directory.
+``tta: true`` (BN-adapt; Tent, EATA or SAR for STiL's nets), scores the
+three heads and writes ``metrics.jsonl`` and ``test_results.csv`` under
+the run's log directory.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from stil_tta_torch.algorithms.base import init_weights
 from stil_tta_torch.algorithms.registry import get_algorithm
-from stil_tta_torch.algorithms.stil import STiL, init_weights
 from stil_tta_torch.data.datasets import (apply_sweep_truncation,
                                           attach_missing_masks, load_sources)
 from stil_tta_torch.data.loader import DeviceCache
@@ -26,9 +26,11 @@ from stil_tta_torch.train.convert import (load_torch_state_dict,
 from stil_tta_torch.train.evaluate import run_validation
 from stil_tta_torch.utils.logging import MetricLogger
 
-# Lightning-level entries of a reference STiL checkpoint that are not
-# weights of the scoring net (the EMA teacher, prototypes, the DA ring)
-_NOT_NET = ("ema.", "prototypes", "DA_queue", "DA_ptr")
+# Lightning-level entries of a reference checkpoint that are not weights
+# of the scoring net: the EMA teacher (STiL, Co-Training), STiL's
+# prototypes, the DA ring, MMatch's memory bank (``embed_queue``,
+# ``embed_queue_ptr``, ``probs_queue``; tools/export_torch_checkpoint.py)
+_NOT_NET = ("ema.", "prototypes", "DA_", "embed_queue", "probs_queue")
 
 
 def load_test_split(cfg) -> ArraySource:
@@ -53,8 +55,8 @@ def load_checkpoint(net: torch.nn.Module, path) -> None:
 
 
 def build_algo(cfg, field_lengths: Sequence[int], device="cuda",
-               dtype: torch.dtype = torch.bfloat16) -> STiL:
-    """The algorithm of ``algorithm_name`` (STiL or STiL_SAINT) on
+               dtype: torch.dtype = torch.bfloat16):
+    """The algorithm of ``algorithm_name`` (any of the registry's) on
     ``device`` with the ``checkpoint`` weights, or seeded random weights
     (``seed``) when there is none."""
     algo = get_algorithm(cfg.algorithm_name)(cfg, field_lengths,

@@ -137,6 +137,14 @@ def adapt(cfg, algo, cache: dict, stats: StatsFn = bn_stats
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown tta_strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
+    if strategy != "bn_adapt" and not algo.entropy_tta:
+        # these nets return a tuple of heads; the JAX package's entropy
+        # phases index it by "out_m" and fail, and no head is picked here
+        # that the reference never picked
+        raise ValueError(
+            f"tta_strategy={strategy} needs the multimodal head of STiL's "
+            f"net; {algo.name} returns a tuple of heads and supports "
+            f"tta_strategy=bn_adapt only, as the JAX package does")
     counts = {"stats_batches": estimate_bn_stats(cfg, algo, cache, stats)}
     if strategy in ("eata", "sar"):
         from stil_tta_torch.tta import methods

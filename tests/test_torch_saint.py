@@ -309,10 +309,19 @@ def test_predictor_pads_the_tail_as_jax(reference):
 
 
 def test_registry_holds_the_ported_algorithms():
+    """The port's classes by name; a name of the JAX registry still to
+    port raises ``NotImplementedError``, a name of neither registry
+    ``ValueError``, as the JAX registry raises it."""
     assert get_algorithm("STiL_SAINT") is STiL_SAINT
     assert STiL_SAINT.tabular_encoder == "saint"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_algorithm("SimMatch")
+    with pytest.raises(ValueError, match="Algorithm name not found"):
         get_algorithm("CoTrainSAINT")
+    from stil_tta_tpu.algorithms.registry import \
+        get_algorithm as jax_get_algorithm
+    with pytest.raises(ValueError, match="Algorithm name not found"):
+        jax_get_algorithm("CoTrainSAINT")
 
 
 def test_stil_saint_config_composes_like_jax():
