@@ -14,7 +14,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
 3. Kernels against plain: ``bn_stats`` and ``bn_bwd_reduce`` against
    their plain versions at every distinct (M, C) of ResNet-50's
    BatchNorms at batch 512 and 128x128, and at batch 128 (the chunk
-   shapes of ``micro_batches=4``), in bfloat16 and float32, and two
+   shapes of ``micro_batches=4``), and ``bn_stats`` also at batch 960
+   (CoMatch's momentum encoder), in bfloat16 and float32, and two
    launches bitwise equal; then the train-mode BN Function's gradients
    (dx, dweight, dbias) with the kernels against the plain Function on
    the stem's shape.
@@ -92,6 +93,20 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     kernel-against-plain step of phase 7 for CoTrain, MMatch and
     CoTrain at ``micro_batches=4`` (212 launches of each kernel); one
     bfloat16 step of CoTrain and of MMatch profiled beside phase 8's.
+15. The FixMatch families at full width (``ImagingNet``: the same
+    ResNet-50, a linear head over 286 classes and a 2048-wide projection
+    head to 128; ``MatchMultimodalNet``: the ResNet-50 and tabular
+    transformer, a 1024-wide concat fusion, a projection head to 128 and
+    one head): the six DVM YAMLs (``config_dvm_{,Multi}{SimMatch,
+    CoMatch,FreeMatch}``) trained with phase 6's flags, the imaging ones
+    for one epoch; 53 launches of each kernel a step by the student, and
+    53 more of ``bn_stats`` by CoMatch's momentum encoder, which runs in
+    train-mode BatchNorm without gradient on 64 + 448 + 448 rows;
+    MultiSimMatch's test-time slice (212 ``bn_stats`` launches) and
+    ``Predictor``; two CoMatch steps whose queues, DA ring and momentum
+    encoder's statistics are checked; and for each multimodal family the
+    kernel-against-plain step of phase 7 and one bfloat16 step profiled
+    beside phase 8's.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -104,6 +119,7 @@ line is the kernels' JSON record and the last line
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -120,6 +136,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BATCH, IMG = 512, 128
 MICRO = 4                   # micro_batches of the fast profile (phase 13)
+TEACHER_ROWS = 960          # CoMatch's train-mode momentum encoder
 TOL = 1e-5                  # relative, of float32 sums over the same data
 FN_TOL = 1e-2               # of max|dx|: one bfloat16 rounding is 2^-8
 SOURCES = ("bn_stats", "bn_bwd_reduce", "conv_chain", "conv_bwd_join")
@@ -297,11 +314,13 @@ def check_bn_function(gen, dev) -> None:
 
 def train_full_width(config_name: str = "config_dvm_STiL", extra=(),
                      per_step: int = 53, tag: str = "train",
-                     epochs: int = 2) -> tuple:
-    """Phase 6 (and 12-14): ``evaluate`` at full width for ``epochs``
+                     epochs: int = 2, teacher_stats: int = 0) -> tuple:
+    """Phase 6 (and 12-15): ``evaluate`` at full width for ``epochs``
     epochs of 8 steps; returns the config, the kernels' launch counts of
     the run and its last epoch's steps/s. ``per_step``: the launches of
-    each kernel a step."""
+    each kernel a step by the student; ``teacher_stats``: the ``bn_stats``
+    launches a step of a train-mode teacher (CoMatch's momentum
+    encoder)."""
     from stil_tta_torch.config import load_config
     from stil_tta_torch.ops.batch_norm import BNTrain, bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.evaluate import evaluate
@@ -345,10 +364,13 @@ def train_full_width(config_name: str = "config_dvm_STiL", extra=(),
         f"{sps:.1f} samples/s (8 steps and epoch_end, host clock); whole "
         f"run {wall:.1f} s (data synthesis, weight init, validation, "
         f"checkpoints, test); peak memory {peak / 2**30:.3f} GiB")
-    log(f"[{tag}] launches {launches} ({per_step} x {n_steps} = "
-        f"{per_step * n_steps} each); dy copied to channels_last in "
-        f"{dy_copies} of {launches['bn_bwd_reduce']} BN backwards")
-    if any(n != per_step * n_steps for n in launches.values()):
+    want = {"bn_stats": (per_step + teacher_stats) * n_steps,
+            "bn_bwd_reduce": per_step * n_steps}
+    log(f"[{tag}] launches {launches} (expected {want}: {per_step} + "
+        f"{teacher_stats} and {per_step} a step, {n_steps} steps); dy "
+        f"copied to channels_last in {dy_copies} of "
+        f"{launches['bn_bwd_reduce']} BN backwards")
+    if launches != want:
         raise SystemExit(f"{tag}: a kernel's launch count is off the "
                          "training path")
     values = [v for r in train + val for k, v in r.items()
@@ -373,6 +395,8 @@ def step_setup(cfg, dev, dtype=torch.bfloat16) -> tuple:
     from stil_tta_torch.data.loader import DeviceCache
     src = load_sources(cfg)
     src_l, src_u = src["train_labelled"], src["train_unlabelled"]
+    if cfg.algorithm_name == "SimMatch" and not cfg.K:
+        cfg.K = len(src_l)   # as train.evaluate sets it
     algo = get_algorithm(cfg.algorithm_name)(cfg, src_l.field_lengths,
                                              dtype=dtype, device=dev)
     cache_l = DeviceCache(src_l, device=dev).as_dict()
@@ -383,11 +407,14 @@ def step_setup(cfg, dev, dtype=torch.bfloat16) -> tuple:
     return algo, algo.make_train_step(), batch
 
 
-def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53) -> None:
-    """Phase 7 (and 12-14): one train step (epoch 1, past start_epoch)
-    from one state with the kernels and with the plain pair, cuDNN
-    deterministic, the net computing in float32; the kernel run must
-    launch each kernel ``per_step`` times.
+def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53,
+                               teacher_stats: int = 0) -> None:
+    """Phase 7 (and 12-15): one train step (epoch 1, past start_epoch)
+    from one state with the kernels and with the plain pair (in the
+    student and in the EMA teacher), cuDNN deterministic, the net
+    computing in float32; the kernel run must launch ``bn_bwd_reduce``
+    ``per_step`` times and ``bn_stats`` ``per_step + teacher_stats``
+    times.
 
     Float32, not the path's bfloat16: in bfloat16 the two pairs' float32
     sums, in different orders, now and then round a channel's bf16 mean
@@ -426,7 +453,10 @@ def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53) -> None:
         torch.cuda.set_rng_state(rng0)
         set_learning_rate(state.optimizer, STEP_LR)
         bn_stats.launches = bn_bwd_reduce.launches = 0
-        with bn_functions(state.net, *fns):
+        with contextlib.ExitStack() as stack:
+            for mod in (state.net, state.ema):
+                if mod is not None:
+                    stack.enter_context(bn_functions(mod, *fns))
             step(state, *batch, 1)
         torch.cuda.synchronize()
         launches = (bn_stats.launches, bn_bwd_reduce.launches)
@@ -466,8 +496,9 @@ def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53) -> None:
         f"difference {d_upd_max:.3f} x lr; BN running stats max |d mean|/std "
         f"{d_mean:.3e}, max |d var|/var {d_var:.3e} (tol 0.1); kernel "
         f"launches (bn_stats, bn_bwd_reduce) {k['launches']} (expected "
-        f"{per_step} each), plain {p['launches']}")
-    if k["launches"] != (per_step, per_step) or p["launches"] != (0, 0):
+        f"{(per_step + teacher_stats, per_step)}), plain {p['launches']}")
+    if k["launches"] != (per_step + teacher_stats, per_step) \
+            or p["launches"] != (0, 0):
         raise SystemExit("kernel vs plain step: launch counts off the path")
     if (d_loss > 1e-2 or d_grad > 0.1 or d_upd > 0.5
             or max(d_mean, d_var) > 0.1):
@@ -719,10 +750,11 @@ def check_mmatch_bank(cfg, dev) -> None:
         raise SystemExit("MMatch: the memory bank or the DA ring is off")
 
 
-def profile_beside(cfg, dev, single: dict, tag: str) -> dict:
+def profile_beside(cfg, dev, single: dict, tag: str,
+                   teacher_stats: int = 0) -> dict:
     """One bfloat16 step of ``cfg`` profiled as phase 8 profiles STiL's,
-    with its launches of each kernel, beside phase 8's numbers
-    (``single``)."""
+    with its launches of each kernel (``bn_stats`` 53 + ``teacher_stats``,
+    ``bn_bwd_reduce`` 53), beside phase 8's numbers (``single``)."""
     from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.optim import set_learning_rate
     algo, step, batch = step_setup(cfg, dev)
@@ -731,10 +763,13 @@ def profile_beside(cfg, dev, single: dict, tag: str) -> dict:
     bn_stats.launches = bn_bwd_reduce.launches = 0
     step(state, *batch, 1)
     torch.cuda.synchronize()
-    if (bn_stats.launches, bn_bwd_reduce.launches) != (53, 53):
+    if (bn_stats.launches, bn_bwd_reduce.launches) != (53 + teacher_stats,
+                                                       53):
         raise SystemExit(f"{tag}: {bn_stats.launches}, "
                          f"{bn_bwd_reduce.launches} launches a step")
     out = profile_train_step(state, step, batch, tag=tag)
+    out["launches"] = {"bn_stats": bn_stats.launches,
+                       "bn_bwd_reduce": bn_bwd_reduce.launches}
     log(f"[pair] {tag} step against STiL's (phase 8): host "
         f"{out['host_ms']:.3f} vs {single['host_ms']:.3f} ms "
         f"({out['host_ms'] / single['host_ms']:.3f}x), device busy "
@@ -772,6 +807,68 @@ def pair_phase(dev, single: dict) -> dict:
         load_config("config_dvm_CoTrain",
                     TRAIN_OVERRIDES + [f"micro_batches={MICRO}"]),
         dev, per_step=53 * MICRO)
+    return by_path
+
+
+# the FixMatch families' DVM configs: (name, bn_stats launches a step of
+# a train-mode teacher, epochs trained); the multimodal ones are held
+# against the plain pair and profiled
+FIXMATCH = (("SimMatch", 0, 1), ("MultiSimMatch", 0, 2), ("CoMatch", 53, 1),
+            ("MultiCoMatch", 53, 2), ("FreeMatch", 0, 1),
+            ("MultiFreeMatch", 0, 2))
+
+
+def check_comatch_buffers(cfg, dev) -> None:
+    """Phase 15: two CoMatch steps at full width; the momentum encoder's
+    BatchNorm running statistics and counters stay as they were (its
+    train-mode forwards normalise by the batch), the queues' positions
+    advance by 448 (strong) and 512 (labelled and weak) a step, the DA
+    ring's length by one, and the buffers stay finite."""
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    before = {k: v.clone() for k, v in state.ema.named_buffers()}
+    ex = state.extra
+    pos = [(ex["ptr_s"], ex["ptr_w"], ex["hist_len"])]
+    for _ in range(2):
+        step(state, *batch, 1)
+        pos.append((ex["ptr_s"], ex["ptr_w"], ex["hist_len"]))
+    torch.cuda.synchronize()
+    kept = all(torch.equal(v, before[k])
+               for k, v in state.ema.named_buffers())
+    finite = all(bool(torch.isfinite(ex[k]).all()) for k in (
+        "queue_s", "probs_u", "queue_w", "probs_xu", "hist_prob"))
+    log(f"[fixmatch] CoMatch after 2 steps: (ptr_s, ptr_w, hist_len) "
+        f"{pos} (expected [(0, 0, 0), (448, 512, 1), (896, 1024, 2)]); "
+        f"momentum encoder's {len(before)} BN buffers unchanged {kept}; "
+        f"buffers finite {finite}")
+    if pos != [(0, 0, 0), (448, 512, 1), (896, 1024, 2)] or not kept \
+            or not finite:
+        raise SystemExit("CoMatch: the queues, the DA ring or the momentum "
+                         "encoder's statistics are off")
+
+
+def fixmatch_phase(dev, single: dict) -> dict:
+    """Phase 15: the six FixMatch YAMLs trained at full width, BN-adapt
+    and serving on MultiSimMatch, CoMatch's buffers, and for each
+    multimodal family a float32 kernel-against-plain step and a bfloat16
+    step profiled beside STiL's (``single``, phase 8); returns the
+    kernels' launch counts of the paths."""
+    from stil_tta_torch.config import load_config
+    by_path = {}
+    for name, teacher, epochs in FIXMATCH:
+        tag = name.lower()
+        _, by_path[f"{tag}_train"], _ = train_full_width(
+            f"config_dvm_{name}", [f"logdir=runs/chip_smoke_{tag}"],
+            tag=f"{tag}-train", epochs=epochs, teacher_stats=teacher)
+    by_path["multisimmatch_bn_adapt"] = {
+        "bn_stats": adapt_and_serve("config_dvm_MultiSimMatch",
+                                    "multisimmatch")}
+    check_comatch_buffers(
+        load_config("config_dvm_MultiCoMatch", TRAIN_OVERRIDES), dev)
+    for name, teacher, _ in FIXMATCH[1::2]:
+        cfg = load_config(f"config_dvm_{name}", TRAIN_OVERRIDES)
+        train_step_kernel_vs_plain(cfg, dev, teacher_stats=teacher)
+        profile_beside(cfg, dev, single, name, teacher_stats=teacher)
     return by_path
 
 
@@ -956,10 +1053,15 @@ def main() -> int:
     log(f"[kernel] batch {BATCH // MICRO} adds {len(chunk_shapes)} (M, C): "
         f"{chunk_shapes}")
     checked = list(per_forward) + chunk_shapes
+    # CoMatch's momentum encoder: 64 + 448 + 448 rows, forward only
+    teacher_shapes = [s for s in collections.Counter(
+        resnet50_bn_shapes(dev, TEACHER_ROWS)) if s not in checked]
+    log(f"[kernel] batch {TEACHER_ROWS} (bn_stats only) adds "
+        f"{len(teacher_shapes)} (M, C)")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_abs = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for m, c in checked:
+        for m, c in checked + teacher_shapes:
             x = (torch.randn(m, c, generator=gen, device=dev)
                  + 0.5).to(dtype)
             s, ss = bn_stats(x)
@@ -1261,6 +1363,10 @@ def main() -> int:
     # ---- 14. the semi-multimodal pair at full width
     by_path.update(pair_phase(dev, single))
     clock.lap("14 MMatch and Co-Training")
+
+    # ---- 15. the FixMatch families at full width
+    by_path.update(fixmatch_phase(dev, single))
+    clock.lap("15 FixMatch families")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

@@ -6,16 +6,20 @@ registry does."""
 
 from __future__ import annotations
 
+from stil_tta_torch.algorithms.comatch import CoMatch
 from stil_tta_torch.algorithms.cotrain import CoTrain, CoTrainSAINT
+from stil_tta_torch.algorithms.freematch import FreeMatch
 from stil_tta_torch.algorithms.mmatch import MMatch
+from stil_tta_torch.algorithms.simmatch import SimMatch
 from stil_tta_torch.algorithms.stil import STiL, STiL_SAINT
 
 ALGORITHMS = {"STiL": STiL, "STiL_SAINT": STiL_SAINT, "MMatch": MMatch,
               "CoTrain_Pseudo": CoTrain,
-              "CoTrain_Pseudo_SAINT": CoTrainSAINT}
+              "CoTrain_Pseudo_SAINT": CoTrainSAINT, "SimMatch": SimMatch,
+              "CoMatch": CoMatch, "FreeMatch": FreeMatch}
 
 # the JAX registry's other names (``registry.py:10-41``)
-UNPORTED = ("SimMatch", "CoMatch", "FreeMatch", "Supervised", "TabularEval")
+UNPORTED = ("Supervised", "TabularEval")
 
 
 def get_algorithm(name: str) -> type:

@@ -1,5 +1,5 @@
-"""Image transforms on the card, the port of the part of
-``stil_tta_tpu/data/augment.py`` STiL uses.
+"""Image transforms on the card, the port of
+``stil_tta_tpu/data/augment.py`` for the DVM recipes.
 
 ``default_pipeline`` (eval) resamples each image with the same
 triangle-kernel matrices as the JAX package (``_resize_matrix``): ``out =
@@ -7,24 +7,38 @@ Ry @ img @ Rx^T`` as two float32 einsums over the batch. ``F.interpolate``
 is not used, because it clamps the source coordinates at the edges
 differently.
 
-``contrastive_pipeline`` is the DVM train recipe
-(``grab_image_augmentations``, ``utils.py:46-91``): colour jitter with
-p 0.8 on the full image before the crop, grayscale with p 0.2, a 29-tap
-Gaussian blur with p 0.5 composed into the resampling matrices, a
+:class:`AugmentPipeline` is the JAX package's general recipe, batched:
+colour jitter (brightness, contrast, saturation and, with a hue range,
+hue through the HSV round trip), grayscale, a Gaussian blur, a
 RandomResizedCrop box (clamped, as the JAX package does), a horizontal
 flip, and the per-sample ``apply_rate`` gate that falls back to the
 resize-only view. Sampling is split from applying:
-:meth:`ContrastivePipeline.sample` draws every random parameter from an
-explicit ``torch.Generator`` and :meth:`ContrastivePipeline.apply` takes
-them as tensors, so a test can feed it the JAX package's draws. The
-cardiac recipe (rotation through an affine gather) is not ported.
+:meth:`AugmentPipeline.sample` draws every random parameter from an
+explicit ``torch.Generator`` and :meth:`AugmentPipeline.apply` takes them
+as tensors, so a test can feed it the JAX package's draws.
+
+The blur takes one of two forms, as in the JAX package. Before the crop
+(the contrastive and hard-eval recipes) it is composed into the
+resampling matrices (``_compose_blur``, rows renormalised at the edges).
+After the crop (the strong recipe, at the output resolution) it is the
+JAX package's reflect-padded separable blur (``gaussian_blur``), written
+here as one (S, S) matrix a sample, ``B[s, m] = sum of w[k] over the taps
+k whose reflected source s + k - half is m``, applied as two batched
+einsums: the jitter between the crop and the blur clamps, so this blur
+cannot be folded into the crop's matrices.
+
+The factories are ``grab_*_image_augmentations`` (``utils.py:46-256``):
+``contrastive_pipeline`` (STiL, MMatch, Co-Training), and the FixMatch
+families' ``hard_eval_pipeline`` (labelled view), ``weak_pipeline`` and
+``strong_pipeline``. The cardiac contrastive and hard-eval recipes rotate
+through an affine gather, which is not ported: they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -75,6 +89,42 @@ def _grayscale(img: Tensor) -> Tensor:
     return (img @ luma)[..., None]
 
 
+def _rgb_to_hsv(img: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """``augment.py:_rgb_to_hsv``: (..., 3) RGB -> hue in [0, 1),
+    saturation, value."""
+    r, g, b = img.unbind(-1)
+    maxc = img.amax(-1)
+    minc = img.amin(-1)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / maxc.clamp_min(1e-12),
+                    torch.zeros_like(maxc))
+    safe = delta.clamp_min(1e-12)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, (h / 6.0) % 1.0, torch.zeros_like(h))
+    return h, s, maxc
+
+
+def _hsv_to_rgb(h: Tensor, s: Tensor, v: Tensor) -> Tensor:
+    """``augment.py:_hsv_to_rgb``: the six-sector formula."""
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = i.long() % 6
+
+    def pick(*cs):
+        out = cs[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, cs[k], out)
+        return out
+
+    return torch.stack([pick(v, q, p, p, t, v), pick(t, v, v, q, p, p),
+                        pick(p, p, t, v, v, q)], dim=-1)
+
+
 def _batched_resize_matrix(src0: Tensor, src_len: Tensor, in_len: int,
                            out_len: int, flip: Tensor = None) -> Tensor:
     """(B, out_len, in_len) resampling matrices of the crops [src0,
@@ -103,6 +153,21 @@ def _compose_blur(r: Tensor, w: Tensor) -> Tensor:
     return c / c.sum(2, keepdim=True).clamp_min(1e-8)
 
 
+def _reflect_blur_matrix(w: Tensor, n: int) -> Tensor:
+    """(B, n, n) matrices of the reflect-padded 1-D blur with taps ``w``
+    (B, K) (``augment.py:gaussian_blur``'s ``sep_pass``): tap k of output
+    s reads source s + k - half, reflected at both ends without repeating
+    the edge."""
+    k = w.shape[1]
+    half = k // 2
+    src = (torch.arange(n, device=w.device)[None, :]
+           + torch.arange(k, device=w.device)[:, None] - half)
+    src = torch.where(src < 0, -src, src)
+    src = torch.where(src > n - 1, 2 * (n - 1) - src, src)
+    taps = torch.nn.functional.one_hot(src, n).to(w.dtype)   # (K, n, n)
+    return torch.einsum("bk,ksm->bsm", w, taps)
+
+
 def _gaussian_kernels(sigma: Tensor, ksize: int) -> Tensor:
     half = ksize // 2
     x = torch.arange(-half, half + 1, dtype=torch.float32,
@@ -112,28 +177,38 @@ def _gaussian_kernels(sigma: Tensor, ksize: int) -> Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class ContrastivePipeline:
-    """The DVM contrastive recipe, batched. ``__call__(generator, images,
-    apply_rate)`` with images (B, H, W, 3) uint8 returns (B, img_size,
-    img_size, 3) float32 in [0, 1]."""
+class AugmentPipeline:
+    """One recipe of the JAX package's ``AugmentPipeline`` without
+    rotation. ``__call__(generator, images, apply_rate)`` with images (B,
+    H, W, 3) uint8 or float returns (B, img_size, img_size, 3) float32,
+    in [0, 1] when ``scale_255``.
+
+    ``jitter`` is (brightness, contrast, saturation, hue) or None;
+    ``jitter_before_crop`` jitters the full image (the contrastive and
+    hard-eval recipes) or the crop (the strong recipe, whose contrast and
+    saturation then take the crop's mean); ``blur_before_crop`` picks the
+    blur's form (module docstring)."""
 
     img_size: int
     crop_scale: Tuple[float, float] = (0.08, 1.0)
     crop_ratio: Tuple[float, float] = (0.75, 4.0 / 3.0)
     hflip_p: float = 0.5
-    jitter: Tuple[float, float, float] = (0.8, 0.8, 0.8)
-    jitter_p: float = 0.8
-    gray_p: float = 0.2
-    blur_ksize: int = 29
+    jitter: Optional[Tuple[float, float, float, float]] = None
+    jitter_p: float = 1.0
+    gray_p: float = 0.0
+    blur_ksize: int = 0
     blur_sigma: Tuple[float, float] = (0.1, 2.0)
-    blur_p: float = 0.5
+    blur_p: float = 0.0
+    blur_before_crop: bool = True
+    jitter_before_crop: bool = True
+    scale_255: bool = True
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                apply_rate: float = 1.0) -> Dict[str, Tensor]:
         """Every random parameter of a batch of ``b`` (h, w) images, drawn
         from ``gen`` on its device, in the JAX package's parameterisation
         (``color_jitter``, ``random_grayscale``, ``sample_crop_box``,
-        ``_augment_one``)."""
+        ``_augment_one``); an op the recipe lacks draws nothing."""
         dev = gen.device
 
         def u(lo=0.0, hi=1.0):
@@ -146,13 +221,19 @@ class ContrastivePipeline:
             gate = torch.ones(b, dtype=torch.bool, device=dev)
         else:
             gate = u() < apply_rate
-        p = {"gate": gate, "jitter_on": u() < self.jitter_p,
-             "brightness": factor(self.jitter[0]),
-             "contrast": factor(self.jitter[1]),
-             "saturation": factor(self.jitter[2]),
-             "gray_on": u() < self.gray_p,
-             "blur_sigma": u(*self.blur_sigma),
-             "blur_on": u() < self.blur_p}
+        p = {"gate": gate}
+        if self.jitter is not None:
+            p.update(jitter_on=u() < self.jitter_p,
+                     brightness=factor(self.jitter[0]),
+                     contrast=factor(self.jitter[1]),
+                     saturation=factor(self.jitter[2]))
+            if self.jitter[3] > 0:
+                p["hue"] = u(-self.jitter[3], self.jitter[3])
+        if self.gray_p > 0:
+            p["gray_on"] = u() < self.gray_p
+        if self.blur_ksize > 0:
+            p.update(blur_sigma=u(*self.blur_sigma),
+                     blur_on=u() < self.blur_p)
         area = float(h * w)
         target = u(*self.crop_scale) * area
         r = torch.exp(u(math.log(self.crop_ratio[0]),
@@ -163,43 +244,72 @@ class ContrastivePipeline:
                  cw=cw, flip=u() < self.hflip_p)
         return p
 
+    def _pointwise(self, imgs: Tensor, p: Dict[str, Tensor]) -> Tensor:
+        """Jitter then grayscale (``AugmentPipeline._pointwise``), each
+        row with its drawn factors; rows whose ``gate`` is False keep
+        ``imgs``."""
+        col = lambda t: t[:, None, None, None]  # noqa: E731
+        out = imgs
+        if self.jitter is not None:
+            on = p["jitter_on"]
+            one = torch.ones_like(p["brightness"])
+            fb, fc, fs = (torch.where(on, p[k], one)
+                          for k in ("brightness", "contrast", "saturation"))
+            out = (out * col(fb)).clamp(0.0, 1.0)
+            mean_gray = _grayscale(out).mean(dim=(1, 2, 3))
+            out = (col(mean_gray) + col(fc) * (out - col(mean_gray))
+                   ).clamp(0.0, 1.0)
+            gray = _grayscale(out)
+            out = (gray + col(fs) * (out - gray)).clamp(0.0, 1.0)
+            if self.jitter[3] > 0:
+                # the round trip runs whether or not the jitter is on
+                hue, s, v = _rgb_to_hsv(out)
+                fh = torch.where(on, p["hue"], torch.zeros_like(p["hue"]))
+                out = _hsv_to_rgb((hue + col(fh)[..., 0]) % 1.0, s, v)
+        if self.gray_p > 0:
+            out = torch.where(col(p["gray_on"]),
+                              _grayscale(out).expand(-1, -1, -1, 3), out)
+        return torch.where(col(p["gate"]), out, imgs)
+
+    def _blur_taps(self, p: Dict[str, Tensor], device) -> Tensor:
+        """(B, K) blur taps: the drawn Gaussian where ``blur_on`` and the
+        gate hold, else the identity delta."""
+        delta = torch.zeros(self.blur_ksize, device=device)
+        delta[self.blur_ksize // 2] = 1.0
+        return torch.where((p["blur_on"] & p["gate"])[:, None],
+                           _gaussian_kernels(p["blur_sigma"],
+                                             self.blur_ksize), delta)
+
     def apply(self, images: Tensor, p: Dict[str, Tensor]) -> Tensor:
         """The recipe with the drawn parameters ``p``; a row whose
         ``gate`` is False gets the resize-only view."""
-        imgs = images.float().clamp(0.0, 255.0) / 255.0
+        imgs = images.float()
+        if self.scale_255:
+            imgs = imgs.clamp(0.0, 255.0) / 255.0
         b, h, w, _ = imgs.shape
         gate = p["gate"]
-        col = lambda t: t[:, None, None, None]  # noqa: E731
-        # pointwise jitter and grayscale on the full image, gated
-        on = p["jitter_on"]
-        one = torch.ones_like(p["brightness"])
-        fb, fc, fs = (torch.where(on, p[k], one)
-                      for k in ("brightness", "contrast", "saturation"))
-        out = (imgs * col(fb)).clamp(0.0, 1.0)
-        mean_gray = _grayscale(out).mean(dim=(1, 2, 3))
-        out = (col(mean_gray) + col(fc) * (out - col(mean_gray))).clamp(0, 1)
-        gray = _grayscale(out)
-        out = (gray + col(fs) * (out - gray)).clamp(0.0, 1.0)
-        out = torch.where(col(p["gray_on"]),
-                          _grayscale(out).expand(-1, -1, -1, 3), out)
-        imgs = torch.where(col(gate), out, imgs)
-        # blur composed into the crop + resize + flip matrices
-        delta = torch.zeros(self.blur_ksize, device=imgs.device)
-        delta[self.blur_ksize // 2] = 1.0
-        blur_w = torch.where((p["blur_on"] & gate)[:, None],
-                             _gaussian_kernels(p["blur_sigma"],
-                                               self.blur_ksize), delta)
+        if self.jitter_before_crop:
+            imgs = self._pointwise(imgs, p)
         zero = torch.zeros_like(p["y0"])
         y0 = torch.where(gate, p["y0"], zero)
         x0 = torch.where(gate, p["x0"], zero)
         ch = torch.where(gate, p["ch"], zero + float(h))
         cw = torch.where(gate, p["cw"], zero + float(w))
         s = self.img_size
-        ry = _compose_blur(_batched_resize_matrix(y0, ch, h, s), blur_w)
-        rx = _compose_blur(_batched_resize_matrix(x0, cw, w, s,
-                                                  p["flip"] & gate), blur_w)
+        ry = _batched_resize_matrix(y0, ch, h, s)
+        rx = _batched_resize_matrix(x0, cw, w, s, p["flip"] & gate)
+        if self.blur_ksize > 0 and self.blur_before_crop:
+            taps = self._blur_taps(p, imgs.device)
+            ry, rx = _compose_blur(ry, taps), _compose_blur(rx, taps)
         tmp = torch.einsum("bsh,bhwc->bswc", ry, imgs)
-        return torch.einsum("btw,bswc->bstc", rx, tmp).clamp(0.0, 1.0)
+        out = torch.einsum("btw,bswc->bstc", rx, tmp)
+        if not self.jitter_before_crop:
+            out = self._pointwise(out, p)
+        if self.blur_ksize > 0 and not self.blur_before_crop:
+            blur = _reflect_blur_matrix(self._blur_taps(p, out.device), s)
+            out = torch.einsum("btw,bswc->bstc", blur, torch.einsum(
+                "bsh,bhwc->bswc", blur, out))
+        return out.clamp(0.0, 1.0) if self.scale_255 else out
 
     def __call__(self, gen: torch.Generator, images: Tensor,
                  apply_rate: float = 1.0) -> Tensor:
@@ -207,12 +317,47 @@ class ContrastivePipeline:
         return self.apply(images, self.sample(gen, b, h, w, apply_rate))
 
 
-def contrastive_pipeline(img_size: int, target: str,
-                         crop_scale_lower: float = 0.08
-                         ) -> ContrastivePipeline:
-    """``grab_image_augmentations`` (``utils.py:46-91``), DVM only."""
+def _no_rotation(recipe: str, target: str) -> None:
     if target.lower() != "dvm":
         raise NotImplementedError(
-            f"the {target!r} contrastive recipe (rotation, affine warp) is "
+            f"the {target!r} {recipe} recipe (rotation, affine warp) is "
             f"not ported to stil_tta_torch yet (ROADMAP.md)")
-    return ContrastivePipeline(img_size, crop_scale=(crop_scale_lower, 1.0))
+
+
+def contrastive_pipeline(img_size: int, target: str,
+                         crop_scale_lower: float = 0.08
+                         ) -> AugmentPipeline:
+    """``grab_image_augmentations`` (``utils.py:46-91``), DVM only:
+    jitter with p 0.8 on the full image, grayscale p 0.2, a 29-tap blur
+    p 0.5 composed into the crop's matrices."""
+    _no_rotation("contrastive", target)
+    return AugmentPipeline(
+        img_size, crop_scale=(crop_scale_lower, 1.0),
+        jitter=(0.8, 0.8, 0.8, 0.0), jitter_p=0.8, gray_p=0.2,
+        blur_ksize=29, blur_sigma=(0.1, 2.0), blur_p=0.5)
+
+
+def hard_eval_pipeline(img_size: int, target: str) -> AugmentPipeline:
+    """``grab_hard_eval_image_augmentations`` (``utils.py:139-184``),
+    DVM only: the contrastive recipe with a (0.6, 1) crop scale."""
+    _no_rotation("hard-eval", target)
+    return contrastive_pipeline(img_size, target, 0.6)
+
+
+def weak_pipeline(img_size: int, target: str) -> AugmentPipeline:
+    """``grab_weak_image_augmentations`` (``utils.py:187-216``): a (0.2,
+    1) crop and a flip."""
+    return AugmentPipeline(img_size, crop_scale=(0.2, 1.0),
+                           scale_255=target.lower() == "dvm")
+
+
+def strong_pipeline(img_size: int, target: str) -> AugmentPipeline:
+    """``grab_strong_image_augmentations`` (``utils.py:219-256``): a
+    (0.2, 1) crop and a flip, then on the crop jitter (0.4 each, hue 0.1)
+    with p 0.8, grayscale p 0.2 (DVM) and a 19-tap reflect blur p 0.5."""
+    dvm = target.lower() == "dvm"
+    return AugmentPipeline(
+        img_size, crop_scale=(0.2, 1.0), jitter=(0.4, 0.4, 0.4, 0.1),
+        jitter_p=0.8, gray_p=0.2 if dvm else 0.0, blur_ksize=19,
+        blur_sigma=(0.1, 2.0), blur_p=0.5, blur_before_crop=False,
+        jitter_before_crop=False, scale_255=dvm)

@@ -103,3 +103,14 @@ def gather_batch(cache: dict, idx: torch.Tensor) -> dict:
     cache's device."""
     keys = ("images", "tabular", "labels", "labelled", "missing")
     return {k: cache[k].index_select(0, idx) for k in keys if k in cache}
+
+
+def dataset_indices(cache: dict, idx: torch.Tensor) -> torch.Tensor:
+    """The dataset indices of the rows ``gather_batch(cache, idx)``
+    returns (``loader.py:172``): ``idx`` itself for a
+    :class:`DeviceCache`, or a cache's own ``"index"`` rows where it
+    carries them. Index-addressed state (SimMatch's instance bank,
+    ``simmatch_model.py:140-147``) is written through this."""
+    if "index" in cache:
+        return cache["index"].index_select(0, idx)
+    return idx

@@ -1,7 +1,9 @@
 """The fusion backbones of the port (the part of
 ``stil_tta_tpu/models/backbones.py`` ported so far): STiL's
-disentangled contrastive backbone and the three-head concat backbone of
-MMatch and Co-Training (:class:`SemiMultimodalBackbone`, at the end).
+disentangled contrastive backbone, the three-head concat backbone of
+MMatch and Co-Training (:class:`SemiMultimodalBackbone`) and the
+FixMatch families' concat backbone with a projection head
+(:class:`MatchBackbone`, at the end).
 
 :class:`DisCoBackbone` (``STiLModel_backbone.py:35-165``): image tokens
 from the ResNet stage-4 map, tabular tokens (the tabular transformer, or
@@ -197,3 +199,56 @@ class SemiMultimodalBackbone(nn.Module):
         return (self.classifier_multimodal(f(x_m)),
                 self.classifier_imaging(f(x_i)),
                 self.classifier_tabular(f(t_cls)), f(x_m))
+
+
+class MatchBackbone(nn.Module):
+    """Concat fusion with a projection head and one classifier, the
+    multimodal net of SimMatch, CoMatch and FreeMatch
+    (``multimodal_backbone.py:37-124``; the JAX package's
+    ``MatchBackbone``): the pooled image features through ``image_proj``
+    and the tabular transformer's CLS token (through ``tabular_proj`` when
+    its width differs from the fusion width), concatenated into ``x_m``;
+    ``head`` (Linear, ReLU, Linear; torch keys ``head.0`` / ``head.2``)
+    to ``projection_dim``; ``classifier_multimodal`` over ``x_m``. The
+    projections compute in ``dtype``, the classifier and the embedding's
+    L2 normalisation (``/ (norm + 1e-12)``, not clipped) in at least
+    float32."""
+
+    def __init__(self, model: str, field_lengths: Sequence[int],
+                 num_classes: int, projection_dim: int = 128,
+                 tabular_embedding_dim: int = 512,
+                 multimodal_embedding_dim: int = 512,
+                 tabular_num_layers: int = 4, embedding_dropout: float = 0.0,
+                 drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cat_lengths, con_lengths = split_field_lengths(field_lengths)
+        self.encoder_imaging = image_encoder(model, dtype=dtype)
+        self.encoder_tabular = TabularTransformerEncoder(
+            cat_lengths, con_lengths, embedding_dim=tabular_embedding_dim,
+            num_layers=tabular_num_layers,
+            embedding_dropout=embedding_dropout, drop_rate=drop_rate,
+            dtype=dtype)
+        hid = multimodal_embedding_dim
+        self.image_proj = Linear(EMBEDDING_DIM[model], hid, dtype=dtype)
+        self.tabular_proj = (Linear(tabular_embedding_dim, hid, dtype=dtype)
+                             if tabular_embedding_dim != hid else None)
+        width = 2 * hid
+        self.head = nn.Sequential(Linear(width, hid, dtype=dtype), nn.ReLU(),
+                                  Linear(hid, projection_dim, dtype=dtype))
+        self.head_dtype = acc_dtype(dtype)
+        self.classifier_multimodal = Linear(width, num_classes,
+                                            dtype=self.head_dtype)
+        self.dtype = dtype
+
+    def forward(self, image: Tensor, tabular: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+        """``(logits, embedding)``, both in at least float32."""
+        x_i = self.encoder_imaging(image)[0]
+        t_cls = self.encoder_tabular(tabular)[:, 0]
+        if self.tabular_proj is not None:
+            t_cls = self.tabular_proj(t_cls)
+        x_m = torch.cat([self.image_proj(x_i), t_cls.to(self.dtype)], dim=1)
+        emb = self.head(x_m).to(self.head_dtype)
+        logits = self.classifier_multimodal(x_m.to(self.head_dtype))
+        return logits, emb / (emb.norm(dim=1, keepdim=True) + 1e-12)

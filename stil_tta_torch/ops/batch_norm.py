@@ -396,13 +396,16 @@ class BatchNorm2d(nn.Module):
     ``bwd_reduce`` are the functions of the train-mode forward sums and
     backward reduction; they are the kernels :func:`bn_stats` and
     :func:`bn_bwd_reduce` unless a caller swaps them for a comparison
-    (:func:`bn_functions`)."""
+    (:func:`bn_functions`). With ``update_running`` False a train-mode
+    forward leaves the running statistics and the counter as they are
+    (:func:`running_stats_frozen`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_running = True
         self.stats: StatsFn = bn_stats
         self.bwd_reduce: BwdReduceFn = bn_bwd_reduce
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -417,6 +420,8 @@ class BatchNorm2d(nn.Module):
         if self.training:
             y, mean, var = BNTrain.apply(x, self.weight, self.bias, self.eps,
                                          self.stats, self.bwd_reduce)
+            if not self.update_running:
+                return y
             n = x.numel() // c
             with torch.no_grad():
                 m = self.momentum
@@ -450,3 +455,21 @@ def bn_functions(module: nn.Module, stats: StatsFn,
     finally:
         for m, (s, b) in zip(bns, saved):
             m.stats, m.bwd_reduce = s, b
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module) -> Iterator[None]:
+    """Inside, the train-mode forwards of every :class:`BatchNorm2d` of
+    ``module`` normalise by their batch's statistics (the ``bn_stats``
+    kernel) and leave the running statistics and counters untouched, as
+    the JAX package discards a train-mode forward's mutated statistics
+    (CoMatch's momentum encoder, ``comatch.py:106-124``)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.update_running for m in bns]
+    for m in bns:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, saved):
+            m.update_running = flag

@@ -9,7 +9,7 @@ native-format split into a CSV:
         --checkpoint model.ckpt --source data/test --out predictions.csv
 
 Serves every algorithm of the registry (STiL, STiL_SAINT, MMatch,
-CoTrain_Pseudo, CoTrain_Pseudo_SAINT). The JAX package's data-parallel
+CoTrain_Pseudo, CoTrain_Pseudo_SAINT, SimMatch, CoMatch, FreeMatch). The JAX package's data-parallel
 and int8 serving options are still to port (ROADMAP.md).
 """
 
@@ -53,8 +53,8 @@ class Predictor:
         """One batch already on the card -> (B, C) float32 probabilities."""
         net = self.algo.net.eval()
         out = net(self.algo.aug_eval(images), tabular)
-        # STiL's nets return a dict of heads, MMatch's and Co-Training's
-        # a tuple led by the multimodal head
+        # STiL's nets return a dict of heads, the comparison families'
+        # a tuple led by the multimodal head's logits
         logits = out["out_m"] if isinstance(out, dict) else out[0]
         return torch.softmax(logits.float(), dim=1)
 

@@ -256,6 +256,14 @@ def load_saint_state_dict(encoder: torch.nn.Module,
     return len(keys)
 
 
+def _is_position(v) -> bool:
+    """An integer scalar of a JAX ``extra``: a write position or a
+    length, an int in the port (FreeMatch's float scalar ``time_p`` stays
+    a tensor)."""
+    a = np.asarray(v)
+    return a.ndim == 0 and np.issubdtype(a.dtype, np.integer)
+
+
 def train_state_from_jax(jax_state) -> Dict[str, object]:
     """The parts of a JAX train state a port train state holds, as torch
     tensors: ``net`` (params and batch_stats, ``state_dict`` of the net),
@@ -263,9 +271,12 @@ def train_state_from_jax(jax_state) -> Dict[str, object]:
     the ``state_dict`` of the backbone, or None) and ``da`` (``(queue,
     ptr)`` or None); of a ``STiLState`` also ``prototypes``,
     ``prototypes_sum`` and ``prototypes_count``; of a ``MatchState``
-    ``extra`` (its buffers, write positions as ints). STiL's EMA tree is
-    the backbone's, a ``MatchState``'s the whole net's (``{"backbone":
-    ...}``). Optimizer moments are not carried."""
+    ``extra`` (its buffers; write positions and lengths as ints). STiL's
+    EMA tree is the backbone's; a ``MatchState``'s mirrors the whole net,
+    ``{"backbone": ...}`` for the backbone nets and top-level for
+    ``ImagingNet``, which is wrapped the same way here, so either loads
+    into the port's teacher (``match_common.ema_source``). Optimizer
+    moments are not carried."""
     def t(a):
         return torch.from_numpy(np.array(a))
 
@@ -278,7 +289,8 @@ def train_state_from_jax(jax_state) -> Dict[str, object]:
         ema = state_dict_from_jax(ema_p, ema_bs)
         out["ema"] = {k[len("model."):]: v for k, v in ema.items()}
     if hasattr(jax_state, "extra"):
-        out["extra"] = {k: (int(np.asarray(v)) if np.ndim(v) == 0 else t(v))
+        out["extra"] = {k: (int(np.asarray(v)) if _is_position(v)
+                            else t(v))
                         for k, v in (jax_state.extra or {}).items()}
     else:
         for k in ("prototypes", "prototypes_sum", "prototypes_count"):

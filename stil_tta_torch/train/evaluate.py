@@ -3,7 +3,7 @@ validation / test scoring, the port of ``stil_tta_tpu/train/evaluate.py``.
 
 :func:`evaluate` trains an algorithm of the registry
 (``algorithms/registry.py``: STiL, STiL_SAINT, MMatch, CoTrain_Pseudo,
-CoTrain_Pseudo_SAINT) on the labelled and unlabelled splits, held on the
+CoTrain_Pseudo_SAINT, SimMatch, CoMatch, FreeMatch) on the labelled and unlabelled splits, held on the
 device (:class:`DeviceCache`): the unlabelled stream defines the epoch
 (dropped last), the labelled stream cycles; both samplers are seeded per
 epoch, so a resumed run replays the uninterrupted one. Each epoch
@@ -115,7 +115,8 @@ def run_validation(eval_step, cache: dict, batch_size: int,
     """Score ``cache`` in order, batch by batch (the tail batch padded to
     ``batch_size`` with weight-0 rows), and reduce the metrics: the
     three heads' accuracy and AUROC, and the val losses where the eval
-    step gives them (STiL's)."""
+    step gives them (STiL's); the FixMatch families' eval steps give
+    the multimodal head alone, and only its metrics are reduced."""
     n = int(cache["labels"].shape[0])
     device = cache["labels"].device
     sampler = EpochSampler(n, batch_size, shuffle=False, drop_last=False)
@@ -128,7 +129,8 @@ def run_validation(eval_step, cache: dict, batch_size: int,
             break
         outs.append((eval_step(cache, torch.from_numpy(idx).to(device),
                                torch.from_numpy(w).to(device)), w))
-    probs = {"m": [], "i": [], "t": []}
+    # the FixMatch families' eval steps give the multimodal head alone
+    probs = {k: [] for k in ("m", "i", "t") if f"prob_{k}" in outs[0][0]}
     ys = []
     loss_sums: Dict[str, float] = {}
     loss_counts: Dict[str, int] = {}
@@ -148,6 +150,8 @@ def run_validation(eval_step, cache: dict, batch_size: int,
     metrics = compute_eval_metrics(np.concatenate(probs["m"]), y,
                                    num_classes, prefix)
     for k, stream in (("i", "imaging"), ("t", "tabular")):
+        if k not in probs:
+            continue
         sub = compute_eval_metrics(np.concatenate(probs[k]), y, num_classes,
                                    prefix)
         metrics[f"{prefix}.acc_{stream}"] = sub[f"{prefix}.acc"]
@@ -212,6 +216,10 @@ def evaluate(cfg, logdir: Optional[Path] = None,
     l_batch = max(batch_size // (1 + ur), 1)
     u_batch = batch_size - l_batch
     cfg.repeat_ratio = max(len(src_u) // (ur * max(len(src_l), 1)) - 1, 1)
+    if cfg.algorithm_name == "SimMatch" and not cfg.K:
+        # the instance bank holds one embedding per labelled sample
+        # (``trainers/evaluate.py:60-61``)
+        cfg.K = len(src_l)
 
     algo = get_algorithm(cfg.algorithm_name)(cfg, src_l.field_lengths,
                                              device=device)

@@ -27,10 +27,19 @@ from stil_tta_torch.train.evaluate import run_validation
 from stil_tta_torch.utils.logging import MetricLogger
 
 # Lightning-level entries of a reference checkpoint that are not weights
-# of the scoring net: the EMA teacher (STiL, Co-Training), STiL's
+# of the scoring net (tools/export_torch_checkpoint.py): the EMA teacher
+# (STiL, Co-Training; ``model.ema.`` for the FixMatch families), STiL's
 # prototypes, the DA ring, MMatch's memory bank (``embed_queue``,
-# ``embed_queue_ptr``, ``probs_queue``; tools/export_torch_checkpoint.py)
-_NOT_NET = ("ema.", "prototypes", "DA_", "embed_queue", "probs_queue")
+# ``embed_queue_ptr``, ``probs_queue``), SimMatch's instance bank and its
+# labels, CoMatch's queues and their positions
+_NOT_NET = ("ema.", "prototypes", "DA_", "embed_queue", "probs_queue",
+            "model.ema.", "model.DA_", "model.bank", "model.labels",
+            "model.queue_s", "model.queue_ptr_s", "model.probs_u",
+            "model.queue_w", "model.queue_ptr_w", "model.probs_xu")
+# the FixMatch families wrap the student as ``model.main``
+# (``simmatch_model.py:51-57``): ``model.main.<key>`` is the imaging net's
+# ``<key>`` and the multimodal net's ``model.<key>``
+_MAIN = "model.main."
 
 
 def load_test_split(cfg) -> ArraySource:
@@ -45,9 +54,18 @@ def load_checkpoint(net: torch.nn.Module, path) -> None:
     """Load a reference-layout torch checkpoint (a ``.ckpt`` written by
     ``tools/export_torch_checkpoint.py``, or a bare ``state_dict``) into
     ``net`` with ``strict=True``, leaving out what is not the scoring
-    net's (``_NOT_NET``) and the SAINT entries its forward never reads."""
+    net's (``_NOT_NET``) and the SAINT entries its forward never reads;
+    the FixMatch families' student comes from under ``_MAIN``."""
     sd = load_torch_state_dict(path)
     keys = set(net.state_dict())
+
+    def key(k: str) -> str:
+        if not k.startswith(_MAIN):
+            return k
+        k = k[len(_MAIN):]
+        return k if k in keys else "model." + k
+
+    sd = {key(k): v for k, v in sd.items()}
     net.load_state_dict({k: v for k, v in sd.items()
                          if not k.startswith(_NOT_NET)
                          and (k in keys or not saint_inert_key(k))},

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from stil_tta_torch.algorithms.match_common import image_tower
 from stil_tta_torch.data.loader import EpochSampler
 from stil_tta_torch.ops.batch_norm import BatchNorm2d, StatsFn, bn_stats
 from stil_tta_torch.train import optim
@@ -163,7 +164,7 @@ def estimate_bn_stats(cfg, algo, cache: dict,
     computes the per-channel sums: the ``bn_stats`` kernel unless a
     caller passes another function to compare with."""
     momentum = float(knob(cfg.tta_momentum, 0.1))
-    tower = algo.net.model.encoder_imaging
+    tower = image_tower(algo.net)
     bns = [m for m in tower.modules() if isinstance(m, BatchNorm2d)]
     saved = [(m.momentum, m.stats) for m in bns]
     for m in bns:

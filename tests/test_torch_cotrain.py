@@ -66,7 +66,8 @@ from stil_tta_tpu.tta import adapt as jax_adapt
 from stil_tta_tpu.tta import methods as jmethods
 from stil_tta_tpu.tta import tent as jtent
 from tests.test_torch_train_step import B_L, B_U, C, F64, FL, IMG, _data
-from tests.torch_parity import (as_torch, assert_close, compare_match_states,
+from tests.torch_parity import (as_torch, assert_close, assert_equal_tree,
+                                compare_match_states,
                                 jax_match_state, match_cfg, port_match_state,
                                 to_numpy, x64)
 from tests.torch_parity import one_torch_thread  # noqa: F401
@@ -545,19 +546,4 @@ def test_cli_resume_is_bitwise_exact(tmp_path):
                          weights_only=True)
     assert straight["step"] == resumed["step"] == 8
     assert straight["ema"] is not None
-    _assert_equal_tree(straight, resumed)
-
-
-def _assert_equal_tree(a, b, path="ckpt"):
-    if isinstance(a, torch.Tensor):
-        assert torch.equal(a, b), path
-    elif isinstance(a, dict):
-        assert set(a) == set(b), path
-        for k in a:
-            _assert_equal_tree(a[k], b[k], f"{path}.{k}")
-    elif isinstance(a, (list, tuple)):
-        assert len(a) == len(b), path
-        for i, (x, y) in enumerate(zip(a, b)):
-            _assert_equal_tree(x, y, f"{path}[{i}]")
-    else:
-        assert a == b, path
+    assert_equal_tree(straight, resumed)

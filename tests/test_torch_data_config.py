@@ -281,15 +281,19 @@ def test_port_imports_no_jax_jax_package_or_triton():
                          cwd=Path(stil_tta_torch.__file__).parents[1])
     first, names = out.stdout.splitlines()[:2]
     n, bad = first.split(" ", 1)
-    # 47 modules: slice 1's, slice 2's (algorithms.base, data.corrupt,
+    # 50 modules: slice 1's, slice 2's (algorithms.base, data.corrupt,
     # losses.prototype_loss, ops.metrics, train.checkpoint, train.optim),
     # slice 3's (ops.conv_chain, tta.methods, tools and
     # tools.bench_conv_probe), slice 6's (algorithms.registry,
-    # models.saint) and slice 7's (algorithms.match_common,
-    # algorithms.mmatch, algorithms.cotrain)
-    assert int(n) >= 47 and bad.strip() == "[]", out.stdout
+    # models.saint), slice 7's (algorithms.match_common,
+    # algorithms.mmatch, algorithms.cotrain) and slice 8's
+    # (algorithms.simmatch, algorithms.comatch, algorithms.freematch)
+    assert int(n) >= 50 and bad.strip() == "[]", out.stdout
     assert {"stil_tta_torch.algorithms.registry",
             "stil_tta_torch.models.saint",
             "stil_tta_torch.algorithms.match_common",
             "stil_tta_torch.algorithms.mmatch",
-            "stil_tta_torch.algorithms.cotrain"} <= set(names.split())
+            "stil_tta_torch.algorithms.cotrain",
+            "stil_tta_torch.algorithms.simmatch",
+            "stil_tta_torch.algorithms.comatch",
+            "stil_tta_torch.algorithms.freematch"} <= set(names.split())

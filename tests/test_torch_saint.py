@@ -315,7 +315,7 @@ def test_registry_holds_the_ported_algorithms():
     assert get_algorithm("STiL_SAINT") is STiL_SAINT
     assert STiL_SAINT.tabular_encoder == "saint"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_algorithm("SimMatch")
+        get_algorithm("Supervised")
     with pytest.raises(ValueError, match="Algorithm name not found"):
         get_algorithm("CoTrainSAINT")
     from stil_tta_tpu.algorithms.registry import \

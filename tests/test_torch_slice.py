@@ -205,5 +205,5 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="missing_tabular"):
         load_test_split(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_algo(_cfg(load_config, algorithm_name="SimMatch"),
+        build_algo(_cfg(load_config, algorithm_name="Supervised"),
                    FIELD_LENGTHS, device="cpu")

@@ -28,7 +28,7 @@ from stil_tta_tpu.losses import prototype_loss as jax_prototype_loss
 from stil_tta_tpu.losses import soft_cross_entropy as jax_soft_ce
 from stil_tta_tpu.ops import metrics as jmetrics
 from stil_tta_tpu.train import optim as joptim
-from tests.torch_parity import assert_close, x64
+from tests.torch_parity import assert_close, jax_augment_draws, x64
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
@@ -303,37 +303,6 @@ def test_corruption_apply_matches_jax_given_its_draws(rate):
     assert int((out != T(rows)).sum(1).max()) <= int(10 * rate)
 
 
-def _jax_draws(pipe, key, b, h, w, rate):
-    """The parameters ``AugmentPipeline.__call__`` draws from ``key``,
-    replaying ``_augment_one``'s key splits, in the port's names."""
-    k_gate, k_aug = jax.random.split(key)
-    u = lambda k, lo=0.0, hi=1.0: float(  # noqa: E731
-        jax.random.uniform(k, minval=lo, maxval=hi))
-    p = {k: [] for k in ("jitter_on", "brightness", "contrast",
-                         "saturation", "gray_on", "blur_sigma", "blur_on",
-                         "y0", "x0", "ch", "cw", "flip")}
-    for key_i in jax.random.split(k_aug, b):
-        ks = jax.random.split(key_i, 6)
-        kj = jax.random.split(ks[0], 5)
-        p["jitter_on"].append(u(kj[0]) < pipe.jitter_p)
-        for name, k, x in zip(("brightness", "contrast", "saturation"),
-                              kj[1:4], pipe.jitter):
-            p[name].append(u(k, max(0.0, 1.0 - x), 1.0 + x))
-        p["gray_on"].append(u(ks[1]) < pipe.gray_p)
-        kb1, kb2 = jax.random.split(ks[2])
-        p["blur_sigma"].append(u(kb1, *pipe.blur_sigma))
-        p["blur_on"].append(u(kb2) < pipe.blur_p)
-        y0, x0, ch, cw = jaug.sample_crop_box(ks[3], h, w, pipe.crop_scale,
-                                              pipe.crop_ratio)
-        for name, v in zip(("y0", "x0", "ch", "cw"), (y0, x0, ch, cw)):
-            p[name].append(float(v))
-        p["flip"].append(u(ks[4]) < pipe.hflip_p)
-    out = {k: torch.tensor(v) for k, v in p.items()}
-    out["gate"] = torch.tensor(np.asarray(
-        jax.random.uniform(k_gate, (b,)) < rate))
-    return out
-
-
 def test_contrastive_pipeline_apply_matches_jax_given_its_draws():
     """The DVM contrastive recipe at 40 -> 32 on 8 images, some gated
     off, with JAX's draws: jitter, grayscale, crop, flip and the blur
@@ -346,7 +315,7 @@ def test_contrastive_pipeline_apply_matches_jax_given_its_draws():
     want = np.asarray(jax.jit(lambda k, x: jpipe(k, x, apply_rate=0.7))(
         key, jnp.asarray(imgs)))
     pipe = augment.contrastive_pipeline(32, "dvm", 0.08)
-    draws = _jax_draws(jpipe, key, 8, 40, 40, 0.7)
+    draws = jax_augment_draws(jpipe, key, 8, 40, 40, 0.7)
     for k in ("gate", "jitter_on", "gray_on", "blur_on", "flip"):
         assert 0 < int(draws[k].sum()) < 8, k   # both branches are taken
     got = pipe.apply(T(imgs), draws)

@@ -196,7 +196,7 @@ def test_cli_resume_is_bitwise_exact_in_the_fast_profile(tmp_path):
 
 @pytest.mark.parametrize("override", [
     "host_stream=true", "teacher_int8=true", "checkpoint=warm.ckpt",
-    "algorithm_name=SimMatch", "algorithm_name=Tent",
+    "algorithm_name=Supervised", "algorithm_name=Tent",
 ])
 def test_unported_training_options_raise(override, tmp_path):
     """Options still to port raise ``NotImplementedError`` naming

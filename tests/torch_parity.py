@@ -8,8 +8,10 @@ float32 default.
 """
 
 import contextlib
+import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -132,8 +134,11 @@ def jax_match_state(jalgo, port_state, img: int, n_fields: int):
     variables, _ = convert_torch_state_dict(sd, target)
     ema = variables
     if port_state.ema is not None:
+        # the teacher mirrors the backbone under ``model``, or the whole
+        # net (ImagingNet)
+        pre = "model." if hasattr(port_state.net, "model") else ""
         ema, _ = convert_torch_state_dict(
-            {"model." + k: v.numpy()
+            {pre + k: v.numpy()
              for k, v in port_state.ema.state_dict().items()}, target)
     c = jalgo.num_classes
     z = lambda *s: jnp.zeros(s, jnp.float64)  # noqa: E731
@@ -184,3 +189,297 @@ def compare_match_states(jstate, pstate, log_keys, loss_rtol=1e-8,
         for f in ("correct", "total"):
             assert float(getattr(getattr(pstate, k), f)) == \
                 float(getattr(getattr(jstate, k), f)), (k, f)
+
+
+# ---------------------------------------------------------------------------
+# augmentation draws (tests/test_torch_train_parts.py,
+# tests/test_torch_match_views.py)
+
+def jax_augment_draws(pipe, key, b: int, h: int, w: int,
+                      rate: float = 1.0):
+    """The parameters a JAX ``AugmentPipeline`` (without rotation) draws
+    from ``key`` for a batch of ``b`` (h, w) images, replaying
+    ``__call__``'s and ``_augment_one``'s key splits (``augment.py:
+    317-392``: per sample, ``ks[0]`` the jitter's five keys, ``ks[1]``
+    grayscale, ``ks[2]`` the blur's two keys before or after the crop,
+    ``ks[3]`` the crop box, ``ks[4]`` the flip), in the port's names."""
+    from stil_tta_tpu.data import augment as jaug
+    k_gate, k_aug = jax.random.split(key)
+    u = lambda k, lo=0.0, hi=1.0: float(  # noqa: E731
+        jax.random.uniform(k, minval=lo, maxval=hi))
+    names = ["y0", "x0", "ch", "cw", "flip"]
+    jitter = pipe.jitter
+    if jitter is not None:
+        names += ["jitter_on", "brightness", "contrast", "saturation"]
+        names += ["hue"] if jitter[3] > 0 else []
+    names += ["gray_on"] if pipe.gray_p > 0 else []
+    names += ["blur_sigma", "blur_on"] if pipe.blur_ksize > 0 else []
+    p = {k: [] for k in names}
+    for key_i in jax.random.split(k_aug, b):
+        ks = jax.random.split(key_i, 6)
+        if jitter is not None:
+            kj = jax.random.split(ks[0], 5)
+            p["jitter_on"].append(u(kj[0]) < pipe.jitter_p)
+            for name, k, x in zip(("brightness", "contrast", "saturation"),
+                                  kj[1:4], jitter):
+                p[name].append(u(k, max(0.0, 1.0 - x), 1.0 + x))
+            if jitter[3] > 0:
+                p["hue"].append(u(kj[4], -jitter[3], jitter[3]))
+        if pipe.gray_p > 0:
+            p["gray_on"].append(u(ks[1]) < pipe.gray_p)
+        if pipe.blur_ksize > 0:
+            kb1, kb2 = jax.random.split(ks[2])
+            p["blur_sigma"].append(u(kb1, *pipe.blur_sigma))
+            p["blur_on"].append(u(kb2) < pipe.blur_p)
+        box = jaug.sample_crop_box(ks[3], h, w, pipe.crop_scale,
+                                   pipe.crop_ratio)
+        for name, v in zip(("y0", "x0", "ch", "cw"), box):
+            p[name].append(float(v))
+        p["flip"].append(u(ks[4]) < pipe.hflip_p)
+    out = {k: torch.tensor(v) for k, v in p.items()}
+    out["gate"] = (torch.ones(b, dtype=torch.bool) if rate >= 1.0 else
+                   torch.tensor(np.asarray(
+                       jax.random.uniform(k_gate, (b,)) < rate)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SimMatch, CoMatch and FreeMatch (tests/test_torch_{simmatch,comatch,
+# freematch}.py)
+
+FIX_L, FIX_U = 6, 12     # rows of the labelled and unlabelled caches
+IDX_L = [4, 1, 5, 2]     # the labelled batch: dataset rows, out of order
+IDX_U = list(range(FIX_U))
+
+
+def fixmatch_data(field_lengths=(5, 4, 2, 1, 1, 1), img: int = 32,
+                  num_classes: int = 4):
+    """``((jax_cache_l, port_cache_l), (jax_cache_u, port_cache_u))`` of
+    ``FIX_L`` labelled and ``FIX_U`` unlabelled rows made with numpy from
+    seed 0: uint8 images on the port's side, the same scaled to [0, 1] in
+    float32 on the JAX side (the port's views compute x / 255)."""
+    rng = np.random.RandomState(0)
+    n = FIX_L + FIX_U
+    imgs = rng.randint(0, 256, (n, img, img, 3)).astype(np.uint8)
+    ncat = sum(1 for f in field_lengths if f > 1)
+    tabs = np.concatenate([
+        np.stack([rng.randint(0, c, n) for c in field_lengths[:ncat]], 1),
+        rng.randn(n, len(field_lengths) - ncat)], 1).astype(np.float32)
+    y = rng.randint(0, num_classes, n)
+    out = []
+    for sl in (slice(0, FIX_L), slice(FIX_L, n)):
+        out.append(({"images": jnp.asarray(
+                         imgs[sl].astype(np.float32) / np.float32(255)),
+                     "tabular": jnp.asarray(tabs[sl]),
+                     "labels": jnp.asarray(y[sl].astype(np.int32)),
+                     "labelled": jnp.asarray(np.ones(y[sl].shape, bool))},
+                    {"images": torch.from_numpy(imgs[sl]),
+                     "tabular": torch.from_numpy(tabs[sl]),
+                     "labels": torch.from_numpy(y[sl]),
+                     "labelled": torch.ones(y[sl].shape, dtype=bool)}))
+    return out
+
+
+def jnp64():
+    """``jax.numpy`` with ``float32`` reading as float64, for a JAX module
+    whose masks, gates and buffers are float32."""
+    import types
+    ns = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                  if not k.startswith("__")})
+    ns.float32 = jnp.float64
+    return ns
+
+
+def fixed_views(algo, port: bool) -> None:
+    """Deterministic, distinct views on both sides, in place of the
+    random recipes (held in ``tests/test_torch_match_views.py``): the
+    labelled and weak views are the image (x / 255 on the port's side)
+    and the row; the strong view flips the image left-right and rolls the
+    rows by one; the second strong view flips it upside down and rolls
+    them by two."""
+    if port:
+        img = lambda x: x.float() / 255          # noqa: E731
+        flip = lambda x, a: torch.flip(x, [a])   # noqa: E731
+        roll = lambda t, n: torch.roll(t, n, 0)  # noqa: E731
+    else:
+        img = lambda x: x                        # noqa: E731
+        flip = lambda x, a: jnp.flip(x, a)       # noqa: E731
+        roll = lambda t, n: jnp.roll(t, n, 0)    # noqa: E731
+
+    def labeled(key, images, tabular, marginal):
+        return img(images), tabular
+
+    def weak_strong(key, images, tabular, marginal, two_strong=False):
+        x = img(images)
+        s2 = ((flip(x, 1), roll(tabular, 2)) if two_strong
+              else (None, None))
+        return (x, tabular), (flip(x, 2), roll(tabular, 1)), s2
+
+    algo.labeled_views = labeled
+    algo.weak_strong_views = weak_strong
+
+
+def fixmatch_steps(jmod, jcls, pcls, cfg_of, fill=None, patch=(),
+                   epoch: int = 1):
+    """One train step of the JAX family ``jcls`` (module ``jmod``, run in
+    x64 with ``jnp.float32`` read as float64, as are the modules of
+    ``patch``) and one of the port's ``pcls`` from one state, each with
+    :func:`fixed_views`, on :func:`fixmatch_data` at ``IDX_L`` /
+    ``IDX_U``. ``cfg_of(loader, *overrides)`` gives the config;
+    ``fill(jstate)`` may
+    put buffers into the JAX state before the port takes it. Returns
+    ``(jax state after, port state after, the carried initial state)``;
+    the JAX step is compiled once."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.train.convert import train_state_from_jax
+    from stil_tta_tpu.config import load_config as jax_load_config
+    (jcl, cl), (jcu, cu) = fixmatch_data()
+    fl = cfg_of(load_config).field_lengths
+    with x64(), pytest.MonkeyPatch.context() as mp:
+        for mod in (jmod,) + tuple(patch):
+            mp.setattr(mod, "jnp", jnp64())
+        jalgo = jcls(cfg_of(jax_load_config), fl, dtype=jnp.float64)
+        fixed_views(jalgo, port=False)
+        algo = pcls(cfg_of(load_config), fl, dtype=torch.float64,
+                    device="cpu")
+        j0 = jax_match_state(jalgo, port_match_state(algo), 32, len(fl))
+        if fill is not None:
+            j0 = fill(j0)
+        carried = train_state_from_jax(j0)
+        jstep = jax.jit(jalgo.make_train_step().__wrapped__)
+        jstate = jstep(j0, jcl, jcu, jnp.asarray(IDX_L, jnp.int32),
+                       jnp.asarray(IDX_U, jnp.int32),
+                       jnp.asarray(epoch, jnp.int32))
+    pstate = port_fixmatch_step(pcls, cfg_of, carried, epoch)[1]
+    return jstate, pstate, carried
+
+
+def port_fixmatch_step(pcls, cfg_of, carried, epoch: int = 1,
+                       *overrides):
+    """The port's step of :func:`fixmatch_steps` alone, from ``carried``,
+    with ``overrides`` (``cfg_of(loader, *overrides)``): ``(algo, state
+    after)``."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.train.convert import load_train_state
+    (_, cl), (_, cu) = fixmatch_data()
+    cfg = cfg_of(load_config, *overrides)
+    algo = pcls(cfg, cfg.field_lengths, dtype=torch.float64, device="cpu")
+    state = algo.init_state(seed=0)
+    load_train_state(state, carried)
+    fixed_views(algo, port=True)
+    algo.make_train_step()(state, cl, cu, torch.tensor(IDX_L),
+                           torch.tensor(IDX_U), epoch)
+    return algo, state
+
+
+def assert_equal_tree(a, b, path="ckpt"):
+    """Two checkpoint payloads are equal, tensors bitwise."""
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_equal_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_equal_tree(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+FIX_CLI = ["--device", "cpu", "dataset=synthetic_dvm", "models=resnet18",
+           "img_size=32", "synthetic_image_size=40", "batch_size=8",
+           "unlabelled_ratio=3", "synthetic_labelled=8",
+           "synthetic_unlabelled=24", "synthetic_val=8", "synthetic_test=8",
+           "num_classes=4", "tabular_embedding_dim=32",
+           "multimodal_embedding_dim=32", "tabular_transformer_num_layers=1",
+           "projection_dim=8", "enable_progress_bar=false"]
+FIX_TRAIN = ["evaluate=True", "start_epoch=0", "checkpoint_every_n_epochs=1",
+             "save_checkpoints=false", "test_and_eval=false",
+             "lr_eval=1.0e-3"]
+
+# the Lightning-level buffers of a reference checkpoint of each family
+# (tools/export_torch_checkpoint.py)
+_REF_BUFFERS = {
+    "SimMatch": lambda ex: {"model.bank": ex["bank"],
+                            "model.labels": ex["bank_labels"]},
+    "CoMatch": lambda ex: {
+        "model.queue_s": ex["queue_s"], "model.probs_u": ex["probs_u"],
+        "model.queue_ptr_s": torch.tensor([ex["ptr_s"]]),
+        "model.queue_w": ex["queue_w"], "model.probs_xu": ex["probs_xu"],
+        "model.queue_ptr_w": torch.tensor([ex["ptr_w"]])},
+    "FreeMatch": lambda ex: {}}
+
+
+def reference_ckpt(payload: dict, algorithm: str, path) -> None:
+    """A port checkpoint's weights and buffers in the reference's
+    Lightning layout of the FixMatch families: the student under
+    ``model.main.`` (the multimodal net's ``model.`` prefix dropped), the
+    teacher under ``model.ema.``, the family's buffers and the DA ring
+    under their registered names."""
+    sd = {}
+    for k, v in payload["net"].items():
+        sd["model.main." + (k[len("model."):] if k.startswith("model.")
+                            else k)] = v
+    sd.update({"model.ema." + k: v for k, v in payload["ema"].items()})
+    sd.update(_REF_BUFFERS[algorithm](payload["extra"]))
+    if payload["da"] is not None:
+        sd["model.DA_queue"] = payload["da"]["queue"]
+        sd["model.DA_ptr"] = torch.tensor([payload["da"]["ptr"]])
+    torch.save({"state_dict": sd}, path)
+
+
+def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
+    """``python -m stil_tta_torch.run`` on the CPU at test size: two
+    epochs straight through equal bitwise one epoch and a resumed second
+    (student, teacher, Adam, buffers, generators, sums); then the test
+    entry point with BN-adapt on the resumed run's weights written in the
+    reference's checkpoint layout, which loads strictly, and
+    ``Predictor`` on those weights. Returns the resumed run's last
+    checkpoint."""
+    from stil_tta_torch import run as port_run
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.test import build_algo, load_test_split
+    base = ["--config-name", name] + FIX_CLI + FIX_TRAIN + list(extra)
+    assert port_run.main(base + ["max_epochs=2",
+                                 f"logdir={tmp_path / 'a'}"]) == 0
+    assert port_run.main(base + ["max_epochs=1",
+                                 f"logdir={tmp_path / 'b'}"]) == 0
+    assert port_run.main([
+        "--config-name", name, "--device", "cpu", "resume_training=True",
+        f"checkpoint={tmp_path / 'b' / 'checkpoint_last'}", "max_epochs=2",
+        f"logdir={tmp_path / 'c'}"]) == 0
+    straight = torch.load(tmp_path / "a" / "checkpoint_last",
+                          weights_only=True)
+    resumed = torch.load(tmp_path / "c" / "checkpoint_last",
+                         weights_only=True)
+    assert straight["step"] == resumed["step"] == 8
+    assert straight["ema"] is not None and straight["extra"]
+    assert_equal_tree(straight, resumed)
+
+    cfg = load_config(name, FIX_CLI[2:] + list(extra))
+    ckpt = tmp_path / "reference.ckpt"
+    reference_ckpt(resumed, cfg.algorithm_name, ckpt)
+    cfg.checkpoint = str(ckpt)
+    src = load_test_split(cfg)
+    algo = build_algo(cfg, src.field_lengths, device="cpu",
+                      dtype=torch.float32)
+    assert_equal_tree(algo.net.state_dict(), resumed["net"])
+    # Predictor serves the (logits, emb) nets as their eval step scores
+    cache = DeviceCache(src, device="cpu").as_dict()
+    want = algo.make_eval_step()(cache, torch.arange(len(src)))["prob_m"]
+    got = Predictor(algo, batch_size=len(src))(np.asarray(src.images),
+                                               np.asarray(src.tabular))
+    assert_close(got, want, 1e-6, 1e-7)
+    assert port_run.main(["--config-name", name] + FIX_CLI + [
+        "test=True", "evaluate=False", "tta=True", "tta_strategy=bn_adapt",
+        f"checkpoint={ckpt}", f"logdir={tmp_path / 't'}"] + list(extra)) == 0
+    assert (tmp_path / "t" / "test_results.csv").exists()
+    # the four checkpoints take about 600 MB: free them
+    for part in ("a", "b", "c"):
+        shutil.rmtree(tmp_path / part)
+    ckpt.unlink()
+    return resumed
