@@ -13,9 +13,11 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    compiler's register / shared-memory / spill report.
 3. Kernels against plain: ``bn_stats`` and ``bn_bwd_reduce`` against
    their plain versions at every distinct (M, C) of ResNet-50's
-   BatchNorms at batch 512 and 128x128, and at batch 128 (the chunk
-   shapes of ``micro_batches=4``), and ``bn_stats`` also at batch 960
-   (CoMatch's momentum encoder), in bfloat16 and float32, and two
+   BatchNorms at batch 512 and 128x128, at batch 128 (the chunk
+   shapes of ``micro_batches=4``), at batch 256 (cardiac), 64
+   (``Supervised``'s labelled rows at DVM batch 512) and 32 (cardiac
+   ``Supervised``), and ``bn_stats`` also at batch 960 (CoMatch's
+   momentum encoder), in bfloat16 and float32, and two
    launches bitwise equal; then the train-mode BN Function's gradients
    (dx, dweight, dbias) with the kernels against the plain Function on
    the stem's shape.
@@ -52,7 +54,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    launch (and ``bn_stats`` also after a flush that only reads, which
    leaves no dirty lines in L2); ``bn_stats``'s plan beside each shape,
    its registers, shared memory and spills (the ``-Xptxas -v`` report),
-   and its per-call floor (one row a block) beside ``x.add_(0)``.
+   and its per-call floor (one row a block) beside ``x.add_(0)``; then
+   both kernels again at the cardiac batch-256 shapes.
 10. TTA strategies at full width: ``test()`` with ``tta_strategy`` tent,
     eata and sar on the configuration of phase 4, each with its metrics,
     wall time and ``bn_stats`` launches (53 x 4, the stats phase); then
@@ -107,6 +110,23 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     encoder's statistics are checked; and for each multimodal family the
     kernel-against-plain step of phase 7 and one bfloat16 step profiled
     beside phase 8's.
+16. The cardiac task, ``Supervised``, ``TabularEval`` and
+    ``missing_tabular`` at full width, on synthetic data with the cardiac
+    widths (2 classes, 26 categorical fields of 2-6 values and 49
+    continuous ones, AUC): (a) ``config_cardiac_STiL`` trained two epochs
+    at batch 256 = 32 + 224 with the rotation-warp contrastive views
+    (53 + 53 launches a step), a float32 kernel-against-plain step, a
+    bfloat16 step profiled beside phase 8's, ``test()`` with BN-adapt
+    (53 ``bn_stats`` a statistics batch) and ``Predictor`` at batch 256;
+    (b) ``Supervised`` with phase 6's flags, one epoch (53 + 53 a step at
+    the 64-row shapes), its float32 kernel-against-plain step and a
+    bfloat16 step profiled beside phase 8's; (c)
+    ``TabularEval`` with phase 6's flags, one epoch, ``test()`` and
+    ``Predictor``, with no BN kernel launched; (d) phase 4's test-time
+    slice with ``missing_tabular`` (212 ``bn_stats``), whose probabilities
+    differ from the unmasked ones; (e) two bfloat16 steps of
+    ``config_cardiac_MultiSimMatch`` with its rotating hard-eval labelled
+    view (53 + 53 a step).
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -156,7 +176,21 @@ TRAIN_OVERRIDES = [
     "test_and_eval=true", "enable_progress_bar=false",
     "logdir=runs/chip_smoke_train",
 ]
-STEPS_PER_EPOCH = 8         # 3584 // 448
+STEPS_PER_EPOCH = 8         # 3584 // 448 and, for cardiac, 1792 // 224
+# the cardiac widths (UK Biobank CAD): 26 categorical fields, here of
+# 2-6 values (the real cardinalities come with the data), and 49
+# continuous ones; 2 classes, scored by AUC
+CARDIAC_FIELDS = [2 + i % 5 for i in range(26)] + [1] * 49
+CARDIAC_BATCH = 256
+CARDIAC_DATA = [
+    "dataset=synthetic_dvm", "target=CAD", "num_classes=2",
+    "eval_metric=auc",
+    f"field_lengths=[{','.join(map(str, CARDIAC_FIELDS))}]",
+    f"batch_size={CARDIAC_BATCH}", "synthetic_labelled=256",
+    "synthetic_unlabelled=1792", "synthetic_val=512", "synthetic_test=1024",
+    "enable_progress_bar=false"]
+SLICE9_BATCHES = (CARDIAC_BATCH, 64, 32)   # cardiac, Supervised at DVM
+# batch 512 (64 labelled rows), cardiac Supervised (32)
 STEP_LR = 1e-4              # lr_eval, for the side-by-side step
 
 
@@ -464,7 +498,9 @@ def train_step_kernel_vs_plain(cfg, dev, per_step: int = 53,
         runs[name] = {
             "loss": float(state.log_sums["loss"]),
             "params": _clone(net.named_parameters()),
-            "grads": _clone((k, p.grad) for k, p in net.named_parameters()),
+            # Supervised's projectors and CLUB heads get no gradient
+            "grads": _clone((k, p.grad) for k, p in net.named_parameters()
+                            if p.grad is not None),
             "stats": _clone((k, b) for k, b in net.named_buffers()
                             if k.endswith(("running_mean", "running_var"))),
             "launches": launches}
@@ -654,10 +690,13 @@ def tta_strategies_full_width() -> None:
         del algo, cache, src
 
 
-def adapt_and_serve(config_name: str, tag: str) -> int:
-    """Phase 12 (and 14): ``test()`` with BN-adapt at full width on
-    ``config_name``, then ``adapt`` alone and ``Predictor`` at batch 512
-    on fresh weights; returns the ``bn_stats`` launches of ``test()``."""
+def adapt_and_serve(config_name: str, tag: str, overrides=TEST_OVERRIDES,
+                    per_batch: int = 53, serve_batch: int = 512) -> int:
+    """Phase 12 (and 14-16): ``test()`` with BN-adapt at full width on
+    ``config_name`` with ``overrides``, ``per_batch`` ``bn_stats``
+    launches a statistics batch (0 for a net without BatchNorm), then
+    ``adapt`` alone and ``Predictor`` at ``serve_batch`` on fresh weights;
+    returns the ``bn_stats`` launches of ``test()``."""
     import numpy as np
     from stil_tta_torch.config import load_config
     from stil_tta_torch.data.loader import DeviceCache
@@ -665,7 +704,7 @@ def adapt_and_serve(config_name: str, tag: str) -> int:
     from stil_tta_torch.serve import Predictor
     from stil_tta_torch.train.test import build_algo, load_test_split, test
     from stil_tta_torch.tta import adapt
-    cfg = load_config(config_name, TEST_OVERRIDES + [
+    cfg = load_config(config_name, list(overrides) + [
         "tta_strategy=bn_adapt", f"logdir=runs/chip_smoke_{tag}"])
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -679,10 +718,10 @@ def adapt_and_serve(config_name: str, tag: str) -> int:
     batches = math.ceil(int(cfg.synthetic_test) / int(cfg.batch_size))
     name = cfg.algorithm_name
     log(f"[{tag}] {name} test(): metrics {json.dumps(metrics)}")
-    log(f"[{tag}] bn_stats launches {adapt_launches} (53 x {batches}); wall "
-        f"{wall:.3f} s (data synthesis, weight init, BN-adapt, scoring); "
-        f"peak memory {peak / 2**30:.3f} GiB")
-    if adapt_launches != 53 * batches:
+    log(f"[{tag}] bn_stats launches {adapt_launches} ({per_batch} x "
+        f"{batches}); wall {wall:.3f} s (data synthesis, weight init, "
+        f"BN-adapt, scoring); peak memory {peak / 2**30:.3f} GiB")
+    if adapt_launches != per_batch * batches:
         raise SystemExit(f"{name}: bn_stats launch count off the BN-adapt "
                          "path")
     if not all(math.isfinite(v) and 0.0 <= v <= 1.0
@@ -697,15 +736,15 @@ def adapt_and_serve(config_name: str, tag: str) -> int:
     adapt(cfg, algo, cache)
     torch.cuda.synchronize()
     t_adapt = time.perf_counter() - t0
-    pred = Predictor(algo, batch_size=512)
+    pred = Predictor(algo, batch_size=serve_batch)
     images, tabular = np.asarray(src.images), np.asarray(src.tabular)
-    pred(images[:512], tabular[:512])
+    pred(images[:serve_batch], tabular[:serve_batch])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probs = pred(images, tabular)
     serve_s = time.perf_counter() - t0
     log(f"[{tag}] BN-adapt alone {t_adapt * 1e3:.1f} ms ({batches} batches); "
-        f"Predictor batch 512: {len(images)} samples in "
+        f"Predictor batch {serve_batch}: {len(images)} samples in "
         f"{serve_s * 1e3:.1f} ms = {len(images) / serve_s:.1f} samples/s")
     if probs.shape != (len(images), int(cfg.num_classes)) \
             or not np.isfinite(probs).all() \
@@ -907,6 +946,110 @@ def fast_profile_phase(dev, single: dict) -> dict:
     return launches
 
 
+def missing_phase() -> dict:
+    """Phase 16 (d): phase 4's test-time slice with ``missing_tabular``
+    (random masks at rate 0.3): ``test()`` with BN-adapt, 53 ``bn_stats``
+    a statistics batch; then on fresh weights, after BN-adapt, the eval
+    step's probabilities with and without the masks, which must differ
+    (the masks reach the tabular encoder's attention)."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.train.test import build_algo, load_test_split
+    from stil_tta_torch.tta import adapt
+    flags = ["missing_tabular=true", "missing_strategy=random",
+             "missing_rate=0.3"]
+    launches = adapt_and_serve("config_dvm_STiL", "missing",
+                               TEST_OVERRIDES + flags)
+    cfg = load_config("config_dvm_STiL", TEST_OVERRIDES + flags + [
+        "tta_strategy=bn_adapt"])
+    src = load_test_split(cfg)
+    algo = build_algo(cfg, src.field_lengths, "cuda")
+    cache = DeviceCache(src, device="cuda").as_dict()
+    adapt(cfg, algo, cache)
+    step = algo.make_eval_step()
+    idx = torch.arange(int(cfg.batch_size), device="cuda")
+    masked = step(cache, idx)["prob_m"].float()
+    clean = {k: v for k, v in cache.items() if k != "missing"}
+    plain = step(clean, idx)["prob_m"].float()
+    share = float(cache["missing"].float().mean())
+    diff = float((masked - plain).abs().max())
+    log(f"[missing] masks: {share:.3f} of the test split's fields missing "
+        f"(rate 0.3); prob_m with and without them max abs diff {diff:.3e}")
+    if not 0.25 < share < 0.35 or not diff > 1e-4 \
+            or not bool(torch.isfinite(masked).all()):
+        raise SystemExit("missing_tabular: the masks did not reach the "
+                         "model")
+    return {"bn_stats": launches}
+
+
+def cardiac_phase(dev, single: dict) -> dict:
+    """Phase 16: cardiac STiL, ``Supervised``, ``TabularEval``,
+    ``missing_tabular`` and cardiac MultiSimMatch at full width; returns
+    the kernels' launch counts of their paths."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    by_path = {}
+    # (a) cardiac STiL: training, a float32 kernel-against-plain step, a
+    # profiled bf16 step, test() with BN-adapt and serving at batch 256
+    cfg, by_path["cardiac_stil_train"], sps = train_full_width(
+        "config_cardiac_STiL",
+        CARDIAC_DATA + ["logdir=runs/chip_smoke_cardiac"],
+        tag="cardiac-train")
+    if cfg.algorithm_name != "STiL" or cfg.target != "CAD" \
+            or int(cfg.batch_size) != CARDIAC_BATCH:
+        raise SystemExit("cardiac STiL: the config did not compose")
+    train_step_kernel_vs_plain(cfg, dev)
+    profile_beside(cfg, dev, single, "cardiac STiL")
+    by_path["cardiac_stil_bn_adapt"] = {"bn_stats": adapt_and_serve(
+        "config_cardiac_STiL", "cardiac-test",
+        CARDIAC_DATA + ["test=True", "tta=True"], serve_batch=CARDIAC_BATCH)}
+    # (b) Supervised on DVM: the labelled 64 rows of each batch
+    sup = ["algorithm_name=Supervised"]
+    _, by_path["supervised_train"], _ = train_full_width(
+        "config_dvm_STiL", sup + ["logdir=runs/chip_smoke_supervised"],
+        tag="supervised-train", epochs=1)
+    sup_cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + sup)
+    train_step_kernel_vs_plain(sup_cfg, dev)
+    profile_beside(sup_cfg, dev, single, "Supervised")
+    # (c) TabularEval: no image tower, no BatchNorm, no kernel
+    tab = ["algorithm_name=TabularEval", "eval_datatype=tabular"]
+    _, by_path["tabular_eval_train"], _ = train_full_width(
+        "config_dvm_STiL", tab + ["logdir=runs/chip_smoke_tabular"],
+        per_step=0, tag="tabular-train", epochs=1)
+    by_path["tabular_eval_bn_adapt"] = {"bn_stats": adapt_and_serve(
+        "config_dvm_STiL", "tabular-test", TEST_OVERRIDES + tab,
+        per_batch=0)}
+    # (d) missing_tabular
+    by_path["missing_bn_adapt"] = missing_phase()
+    # (e) cardiac MultiSimMatch: two bf16 steps with the rotating
+    # hard-eval labelled view
+    from stil_tta_torch.train.optim import set_learning_rate
+    cfg = load_config("config_cardiac_MultiSimMatch",
+                      TRAIN_OVERRIDES + CARDIAC_DATA)
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    for _ in range(2):
+        step(state, *batch, 1)
+    torch.cuda.synchronize()
+    launches = {"bn_stats": bn_stats.launches,
+                "bn_bwd_reduce": bn_bwd_reduce.launches}
+    loss = float(state.log_sums["loss"]) / float(state.log_count)
+    log(f"[cardiac] MultiSimMatch two bf16 steps at batch "
+        f"{cfg.batch_size}: labelled view rotates up to "
+        f"{algo.aug_labeled.rotate_limit} degrees, mean loss {loss:.4f}, "
+        f"launches {launches} (53 + 53 a step)")
+    if launches != {"bn_stats": 106, "bn_bwd_reduce": 106} \
+            or algo.aug_labeled.rotate_limit != 45.0 \
+            or not math.isfinite(loss):
+        raise SystemExit("cardiac MultiSimMatch: launches, view or loss off")
+    by_path["cardiac_multisimmatch_steps"] = launches
+    log(f"[cardiac] steps/s cardiac STiL {sps:.3f} (second epoch, batch "
+        f"{CARDIAC_BATCH})")
+    return by_path
+
+
 def ptxas_report(source: str) -> dict:
     """Registers, shared memory and spills of each kernel entry of a built
     source, from its ``-Xptxas -v`` report: {mangled name: summary}."""
@@ -1006,6 +1149,108 @@ def probe_phase() -> list:
     return rows
 
 
+def time_forward(shapes, gen, dev, buf, clean, batch: int) -> tuple:
+    """Phase 9: ``bn_stats`` per (M, C) of ``shapes`` (a Counter of one
+    ResNet-50 forward at ``batch``), bf16, against its bound, its plain
+    version and ``torch.batch_norm_stats``, and with ``clean`` (a buffer
+    whose sum flushes L2 by reading) also after that flush; returns the
+    forward's totals and what bounds it."""
+    from stil_tta_torch.ops.batch_norm import (bn_stats, bn_stats_plain,
+                                               bn_stats_plan)
+    lib_fn = lambda x: torch.batch_norm_stats(x, 1e-5)  # noqa: E731
+    tot = collections.defaultdict(float)
+    nbytes_all = nops_all = 0
+    for (m, c), n in shapes.items():
+        x = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
+        t_k = time_ms(bn_stats, x, buf)
+        t_p = time_ms(bn_stats_plain, x, buf)
+        t_l = time_ms(lib_fn, x, buf)
+        nbytes = m * c * 2 + 2 * c * 4
+        nops = 3 * m * c
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
+        after = ""
+        if clean is not None:
+            t_c = time_ms(bn_stats, x, buf, flush=clean.sum)
+            tot["clean_ms"] += n * t_c
+            after = (f"; kernel after a reading flush {t_c:.4f} ms "
+                     f"({bound / t_c:.1%})")
+        plan = bn_stats_plan(x)
+        log(f"[time] M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
+            f"bound {bound:.4f} ms ({bound / t_k:.1%} of bound) plain "
+            f"{t_p:.4f} ms batch_norm_stats {t_l:.4f} ms{after}; plan grid "
+            f"{plan.grid}, {plan.tiles} tile(s) of {plan.tile_c} x "
+            f"{plan.chunks} chunks of {plan.rows_per_chunk} rows, "
+            f"{plan.stages} stages of {plan.stage_rows} rows "
+            f"({plan.stage_bytes:,d} bytes), {plan.chunks} partial "
+            f"rows, smem {plan.smem:,d}")
+        tot["ms"] += n * t_k
+        tot["plain_ms"] += n * t_p
+        tot["library_ms"] += n * t_l
+        tot["bound_ms"] += n * bound
+        nbytes_all += n * nbytes
+        nops_all += n * nops
+        del x
+    bound_by = ("bytes" if nbytes_all / HBM_BYTES_PER_S
+                >= nops_all / F32_FLOPS else "operations")
+    after = ("" if clean is None else
+             f"; kernel after a reading flush {tot['clean_ms']:.4f} ms "
+             f"({tot['bound_ms'] / tot['clean_ms']:.1%})")
+    log(f"[time] one forward (53 BNs, batch {batch}): kernel "
+        f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({nbytes_all / 1e9:.3f} GB; the kernel at "
+        f"{tot['bound_ms'] / tot['ms']:.1%} of it), plain "
+        f"{tot['plain_ms']:.4f} ms, batch_norm_stats "
+        f"{tot['library_ms']:.4f} ms{after}")
+    return tot, bound_by
+
+
+def time_backward(shapes, gen, dev, buf, batch: int) -> tuple:
+    """Phase 9: ``bn_bwd_reduce`` per (M, C) of ``shapes``, bf16, against
+    its bound, its plain version and
+    ``torch.batch_norm_backward_reduce``: x and dy read once, mean and inv
+    read, two sums out; returns the backward's totals and what bounds
+    it."""
+    from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
+                                               bn_bwd_reduce_plain)
+    lib_bwd = lambda t: torch.batch_norm_backward_reduce(  # noqa: E731
+        t[1], t[0], t[2], t[3], t[4], True, True, True)
+    tot_b = collections.defaultdict(float)
+    nbytes_all = nops_all = 0
+    for (m, c), n in shapes.items():
+        x = (torch.randn(m, c, generator=gen, device=dev)
+             + 0.5).to(torch.bfloat16)
+        dy = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
+        mean = x.float().mean(0)
+        inv = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
+        weight = torch.ones(c, device=dev)
+        args = (x, dy, mean, inv, weight)
+        t_k = time_ms(lambda t: bn_bwd_reduce(*t[:4]), args, buf)
+        t_p = time_ms(lambda t: bn_bwd_reduce_plain(*t[:4]), args, buf)
+        t_l = time_ms(lib_bwd, args, buf)
+        nbytes = 2 * m * c * 2 + 4 * c * 4
+        nops = 5 * m * c
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
+        log(f"[time] bwd M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
+            f"bound {bound:.4f} ms ({bound / t_k:.0%} of bound) plain "
+            f"{t_p:.4f} ms batch_norm_backward_reduce {t_l:.4f} ms")
+        tot_b["ms"] += n * t_k
+        tot_b["plain_ms"] += n * t_p
+        tot_b["library_ms"] += n * t_l
+        tot_b["bound_ms"] += n * bound
+        nbytes_all += n * nbytes
+        nops_all += n * nops
+        del x, dy, args
+    bound_by = ("bytes" if nbytes_all / HBM_BYTES_PER_S
+                >= nops_all / F32_FLOPS else "operations")
+    log(f"[time] one backward (53 BNs, batch {batch}): kernel "
+        f"{tot_b['ms']:.4f} ms, bound {tot_b['bound_ms']:.4f} ms "
+        f"({nbytes_all / 1e9:.3f} GB; the kernel at "
+        f"{tot_b['bound_ms'] / tot_b['ms']:.1%} of it), plain "
+        f"{tot_b['plain_ms']:.4f} ms, batch_norm_backward_reduce "
+        f"{tot_b['library_ms']:.4f} ms")
+    return tot_b, bound_by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -1053,6 +1298,12 @@ def main() -> int:
     log(f"[kernel] batch {BATCH // MICRO} adds {len(chunk_shapes)} (M, C): "
         f"{chunk_shapes}")
     checked = list(per_forward) + chunk_shapes
+    # cardiac (batch 256) and Supervised's labelled rows (64 and 32)
+    for b in SLICE9_BATCHES:
+        extra = [s for s in collections.Counter(resnet50_bn_shapes(dev, b))
+                 if s not in checked]
+        log(f"[kernel] batch {b} adds {len(extra)} (M, C): {extra}")
+        checked += extra
     # CoMatch's momentum encoder: 64 + 448 + 448 rows, forward only
     teacher_shapes = [s for s in collections.Counter(
         resnet50_bn_shapes(dev, TEACHER_ROWS)) if s not in checked]
@@ -1243,9 +1494,6 @@ def main() -> int:
     clock.lap("8 step profile")
 
     # ---- 9. timing per shape (bfloat16, the path's dtype)
-    from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
-                                               bn_bwd_reduce_plain,
-                                               bn_stats_plan)
     ptxas = ptxas_report("bn_stats")
     for entry, report in ptxas.items():
         log(f"[time] bn_stats ptxas {entry}: {report}")
@@ -1254,45 +1502,7 @@ def main() -> int:
     buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     # a flush that reads: L2 then holds clean lines only
     clean = torch.ones(64 * 2**20, device=dev)
-    lib_fn = lambda x: torch.batch_norm_stats(x, 1e-5)  # noqa: E731
-    tot = collections.defaultdict(float)
-    bytes_fwd = 0
-    ops_fwd = 0
-    for (m, c), n in per_forward.items():
-        x = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
-        t_k = time_ms(bn_stats, x, buf)
-        t_p = time_ms(bn_stats_plain, x, buf)
-        t_l = time_ms(lib_fn, x, buf)
-        t_c = time_ms(bn_stats, x, buf, flush=clean.sum)
-        nbytes = m * c * 2 + 2 * c * 4
-        nops = 3 * m * c
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
-        plan = bn_stats_plan(x)
-        log(f"[time] M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
-            f"bound {bound:.4f} ms ({bound / t_k:.1%} of bound) plain "
-            f"{t_p:.4f} ms batch_norm_stats {t_l:.4f} ms; kernel after a "
-            f"reading flush {t_c:.4f} ms ({bound / t_c:.1%}); plan grid "
-            f"{plan.grid}, {plan.tiles} tile(s) of {plan.tile_c} x "
-            f"{plan.chunks} chunks of {plan.rows_per_chunk} rows, "
-            f"{plan.stages} stages of {plan.stage_rows} rows "
-            f"({plan.stage_bytes:,d} bytes), {plan.chunks} partial "
-            f"rows, smem {plan.smem:,d}")
-        tot["ms"] += n * t_k
-        tot["plain_ms"] += n * t_p
-        tot["library_ms"] += n * t_l
-        tot["clean_ms"] += n * t_c
-        tot["bound_ms"] += n * bound
-        bytes_fwd += n * nbytes
-        ops_fwd += n * nops
-        del x
-    bound_by = ("bytes" if bytes_fwd / HBM_BYTES_PER_S
-                >= ops_fwd / F32_FLOPS else "operations")
-    log(f"[time] one forward (53 BNs, batch 512): kernel {tot['ms']:.4f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms ({bytes_fwd / 1e9:.3f} GB; the "
-        f"kernel at {tot['bound_ms'] / tot['ms']:.1%} of it), plain "
-        f"{tot['plain_ms']:.4f} ms, batch_norm_stats "
-        f"{tot['library_ms']:.4f} ms; kernel after a reading flush "
-        f"{tot['clean_ms']:.4f} ms ({tot['bound_ms'] / tot['clean_ms']:.1%})")
+    tot, bound_by = time_forward(per_forward, gen, dev, buf, clean, BATCH)
     del clean
     # the cost of a call that moves almost no bytes: one row a block,
     # beside one elementwise kernel on the same input
@@ -1300,43 +1510,12 @@ def main() -> int:
     log(f"[time] per-call floor at M=132 C=256: bn_stats "
         f"{time_ms(bn_stats, x, buf) * 1e3:.2f} us, x.add_(0) "
         f"{time_ms(lambda t: t.add_(0), x, buf) * 1e3:.2f} us")
-
-    # bn_bwd_reduce: x and dy read once, mean and inv read, two sums out
-    lib_bwd = lambda t: torch.batch_norm_backward_reduce(  # noqa: E731
-        t[1], t[0], t[2], t[3], t[4], True, True, True)
-    tot_b = collections.defaultdict(float)
-    bytes_bwd = 0
-    ops_bwd = 0
-    for (m, c), n in per_forward.items():
-        x = (torch.randn(m, c, generator=gen, device=dev)
-             + 0.5).to(torch.bfloat16)
-        dy = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
-        mean = x.float().mean(0)
-        inv = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
-        weight = torch.ones(c, device=dev)
-        args = (x, dy, mean, inv, weight)
-        t_k = time_ms(lambda t: bn_bwd_reduce(*t[:4]), args, buf)
-        t_p = time_ms(lambda t: bn_bwd_reduce_plain(*t[:4]), args, buf)
-        t_l = time_ms(lib_bwd, args, buf)
-        nbytes = 2 * m * c * 2 + 4 * c * 4
-        nops = 5 * m * c
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
-        log(f"[time] bwd M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
-            f"bound {bound:.4f} ms ({bound / t_k:.0%} of bound) plain "
-            f"{t_p:.4f} ms batch_norm_backward_reduce {t_l:.4f} ms")
-        tot_b["ms"] += n * t_k
-        tot_b["plain_ms"] += n * t_p
-        tot_b["library_ms"] += n * t_l
-        tot_b["bound_ms"] += n * bound
-        bytes_bwd += n * nbytes
-        ops_bwd += n * nops
-        del x, dy, args
-    bound_by_b = ("bytes" if bytes_bwd / HBM_BYTES_PER_S
-                  >= ops_bwd / F32_FLOPS else "operations")
-    log(f"[time] one backward (53 BNs, batch 512): kernel "
-        f"{tot_b['ms']:.4f} ms, bound {tot_b['bound_ms']:.4f} ms "
-        f"({bytes_bwd / 1e9:.3f} GB), plain {tot_b['plain_ms']:.4f} ms, "
-        f"batch_norm_backward_reduce {tot_b['library_ms']:.4f} ms")
+    tot_b, bound_by_b = time_backward(per_forward, gen, dev, buf, BATCH)
+    # the cardiac batch's shapes
+    cardiac_shapes = collections.Counter(resnet50_bn_shapes(dev,
+                                                            CARDIAC_BATCH))
+    time_forward(cardiac_shapes, gen, dev, buf, None, CARDIAC_BATCH)
+    time_backward(cardiac_shapes, gen, dev, buf, CARDIAC_BATCH)
     log(f"[time] launches: BN-adapt slice bn_stats {adapt_launches}; "
         f"training {launches} (the record's counts)")
     del buf
@@ -1367,6 +1546,10 @@ def main() -> int:
     # ---- 15. the FixMatch families at full width
     by_path.update(fixmatch_phase(dev, single))
     clock.lap("15 FixMatch families")
+
+    # ---- 16. cardiac, Supervised, TabularEval, missing_tabular
+    by_path.update(cardiac_phase(dev, single))
+    clock.lap("16 cardiac and baselines")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

@@ -106,11 +106,12 @@ def ema_source(net: nn.Module) -> nn.Module:
     return net.model if hasattr(net, "model") else net
 
 
-def image_tower(net: nn.Module) -> nn.Module:
+def image_tower(net: nn.Module) -> Optional[nn.Module]:
     """The ResNet of any of the port's nets, which holds every
-    BatchNorm."""
-    return (net.model.encoder_imaging if hasattr(net, "model")
-            else net.backbone)
+    BatchNorm; None for ``TabularNet``, which has neither."""
+    if hasattr(net, "model"):
+        return net.model.encoder_imaging
+    return getattr(net, "backbone", None)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,7 @@
 """Algorithm name -> class, the port's counterpart of
-``stil_tta_tpu/algorithms/registry.py``, holding the algorithms ported so
-far. A name the JAX registry knows and the port does not have yet raises
-``NotImplementedError``; any other name raises ``ValueError``, as the JAX
-registry does."""
+``stil_tta_tpu/algorithms/registry.py``: all ten names of the JAX
+registry. Any other name raises ``ValueError``, as the JAX registry
+does."""
 
 from __future__ import annotations
 
@@ -12,21 +11,17 @@ from stil_tta_torch.algorithms.freematch import FreeMatch
 from stil_tta_torch.algorithms.mmatch import MMatch
 from stil_tta_torch.algorithms.simmatch import SimMatch
 from stil_tta_torch.algorithms.stil import STiL, STiL_SAINT
+from stil_tta_torch.algorithms.supervised import Supervised
+from stil_tta_torch.algorithms.tabular_eval import TabularEval
 
 ALGORITHMS = {"STiL": STiL, "STiL_SAINT": STiL_SAINT, "MMatch": MMatch,
               "CoTrain_Pseudo": CoTrain,
               "CoTrain_Pseudo_SAINT": CoTrainSAINT, "SimMatch": SimMatch,
-              "CoMatch": CoMatch, "FreeMatch": FreeMatch}
-
-# the JAX registry's other names (``registry.py:10-41``)
-UNPORTED = ("Supervised", "TabularEval")
+              "CoMatch": CoMatch, "FreeMatch": FreeMatch,
+              "Supervised": Supervised, "TabularEval": TabularEval}
 
 
 def get_algorithm(name: str) -> type:
     if name in ALGORITHMS:
         return ALGORITHMS[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to stil_tta_torch yet "
-            f"(ROADMAP.md); ported: {', '.join(ALGORITHMS)}")
     raise ValueError(f"Algorithm name not found: {name}")

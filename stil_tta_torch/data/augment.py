@@ -27,11 +27,19 @@ k whose reflected source s + k - half is m``, applied as two batched
 einsums: the jitter between the crop and the blur clamps, so this blur
 cannot be folded into the crop's matrices.
 
+With ``rotate_limit > 0`` (the cardiac recipes) the crop, resize, flip
+and a rotation about the full image's centre are one affine map, evaluated
+on the S x S output grid only by :func:`affine_warp`: four clipped
+bilinear gathers a sample point (batched advanced indexing), as the JAX
+package's ``affine_warp`` does. ``F.grid_sample`` is not used: its corner
+and clamp rules differ. A blur before the crop is then the reflect blur
+of the full (H, W) image.
+
 The factories are ``grab_*_image_augmentations`` (``utils.py:46-256``):
-``contrastive_pipeline`` (STiL, MMatch, Co-Training), and the FixMatch
+``contrastive_pipeline`` (STiL, MMatch, Co-Training), the FixMatch
 families' ``hard_eval_pipeline`` (labelled view), ``weak_pipeline`` and
-``strong_pipeline``. The cardiac contrastive and hard-eval recipes rotate
-through an affine gather, which is not ported: they raise.
+``strong_pipeline``, and ``soft_eval_pipeline``, for the DVM and the
+cardiac targets.
 """
 
 from __future__ import annotations
@@ -139,6 +147,37 @@ def _batched_resize_matrix(src0: Tensor, src_len: Tensor, in_len: int,
     return (1.0 - (src[:, :, None] - j).abs()).clamp_min(0.0)
 
 
+def affine_warp(imgs: Tensor, y0: Tensor, x0: Tensor, ch: Tensor,
+                cw: Tensor, out_size: int, flip: Tensor,
+                angle: Tensor) -> Tensor:
+    """The crop [y0, y0 + ch) x [x0, x0 + cw) of each image of ``imgs``
+    (B, H, W, C), resized to ``out_size``², flipped where ``flip`` and
+    rotated by ``angle`` (radians) about the full image's centre, by
+    clipped bilinear gathers at the output grid's inverse-mapped points
+    (``augment.py:affine_warp``); the box, flip and angle are (B,)."""
+    b, h, w, _ = imgs.shape
+    dev = imgs.device
+    col = lambda t: t[:, None, None]  # noqa: E731
+    i = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sy = y0[:, None] + (i + 0.5) * (ch / out_size)[:, None] - 0.5
+    jx = torch.where(flip[:, None], out_size - 1.0 - i, i)
+    sx = x0[:, None] + (jx + 0.5) * (cw / out_size)[:, None] - 0.5
+    yy = sy[:, :, None].expand(b, out_size, out_size)
+    xx = sx[:, None, :].expand(b, out_size, out_size)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ca, sa = col(torch.cos(angle)), col(torch.sin(angle))
+    ys = (cy + ca * (yy - cy) - sa * (xx - cx)).clamp(0.0, h - 1.0)
+    xs = (cx + sa * (yy - cy) + ca * (xx - cx)).clamp(0.0, w - 1.0)
+    y0i, x0i = ys.floor().long(), xs.floor().long()
+    y1i, x1i = (y0i + 1).clamp_max(h - 1), (x0i + 1).clamp_max(w - 1)
+    wy = (ys - y0i)[..., None]
+    wx = (xs - x0i)[..., None]
+    bi = torch.arange(b, device=dev)[:, None, None]
+    top = imgs[bi, y0i, x0i] * (1 - wx) + imgs[bi, y0i, x1i] * wx
+    bot = imgs[bi, y1i, x0i] * (1 - wx) + imgs[bi, y1i, x1i] * wx
+    return top * (1 - wy) + bot * wy
+
+
 def _compose_blur(r: Tensor, w: Tensor) -> Tensor:
     """Fold a separable Gaussian ``w`` (B, K) into resampling matrices
     ``r`` (B, S, H): ``C[s, m] = sum_k w[k] R[s, m - k + half]``, rows
@@ -178,8 +217,8 @@ def _gaussian_kernels(sigma: Tensor, ksize: int) -> Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class AugmentPipeline:
-    """One recipe of the JAX package's ``AugmentPipeline`` without
-    rotation. ``__call__(generator, images, apply_rate)`` with images (B,
+    """One recipe of the JAX package's ``AugmentPipeline``.
+    ``__call__(generator, images, apply_rate)`` with images (B,
     H, W, 3) uint8 or float returns (B, img_size, img_size, 3) float32,
     in [0, 1] when ``scale_255``.
 
@@ -187,7 +226,9 @@ class AugmentPipeline:
     ``jitter_before_crop`` jitters the full image (the contrastive and
     hard-eval recipes) or the crop (the strong recipe, whose contrast and
     saturation then take the crop's mean); ``blur_before_crop`` picks the
-    blur's form (module docstring)."""
+    blur's form (module docstring); ``rotate_limit`` > 0 (degrees) adds a
+    rotation drawn uniform in +-``rotate_limit`` and takes the gather path
+    (:func:`affine_warp`)."""
 
     img_size: int
     crop_scale: Tuple[float, float] = (0.08, 1.0)
@@ -199,6 +240,7 @@ class AugmentPipeline:
     blur_ksize: int = 0
     blur_sigma: Tuple[float, float] = (0.1, 2.0)
     blur_p: float = 0.0
+    rotate_limit: float = 0.0
     blur_before_crop: bool = True
     jitter_before_crop: bool = True
     scale_255: bool = True
@@ -208,7 +250,8 @@ class AugmentPipeline:
         """Every random parameter of a batch of ``b`` (h, w) images, drawn
         from ``gen`` on its device, in the JAX package's parameterisation
         (``color_jitter``, ``random_grayscale``, ``sample_crop_box``,
-        ``_augment_one``); an op the recipe lacks draws nothing."""
+        ``_augment_one``; the angle in radians); an op the recipe lacks
+        draws nothing."""
         dev = gen.device
 
         def u(lo=0.0, hi=1.0):
@@ -242,6 +285,9 @@ class AugmentPipeline:
         ch = torch.sqrt(target / r).clamp(1.0, float(h))
         p.update(y0=u() * (float(h) - ch), x0=u() * (float(w) - cw), ch=ch,
                  cw=cw, flip=u() < self.hflip_p)
+        if self.rotate_limit > 0:
+            lim = math.radians(self.rotate_limit)
+            p["angle"] = u(-lim, lim)
         return p
 
     def _pointwise(self, imgs: Tensor, p: Dict[str, Tensor]) -> Tensor:
@@ -296,13 +342,25 @@ class AugmentPipeline:
         ch = torch.where(gate, p["ch"], zero + float(h))
         cw = torch.where(gate, p["cw"], zero + float(w))
         s = self.img_size
-        ry = _batched_resize_matrix(y0, ch, h, s)
-        rx = _batched_resize_matrix(x0, cw, w, s, p["flip"] & gate)
-        if self.blur_ksize > 0 and self.blur_before_crop:
-            taps = self._blur_taps(p, imgs.device)
-            ry, rx = _compose_blur(ry, taps), _compose_blur(rx, taps)
-        tmp = torch.einsum("bsh,bhwc->bswc", ry, imgs)
-        out = torch.einsum("btw,bswc->bstc", rx, tmp)
+        flip = p["flip"] & gate
+        if self.rotate_limit > 0:
+            if self.blur_ksize > 0 and self.blur_before_crop:
+                # the full image's reflect blur (``augment.py:338-341``)
+                taps = self._blur_taps(p, imgs.device)
+                imgs = torch.einsum(
+                    "btw,bswc->bstc", _reflect_blur_matrix(taps, w),
+                    torch.einsum("bsh,bhwc->bswc",
+                                 _reflect_blur_matrix(taps, h), imgs))
+            angle = torch.where(gate, p["angle"], zero)
+            out = affine_warp(imgs, y0, x0, ch, cw, s, flip, angle)
+        else:
+            ry = _batched_resize_matrix(y0, ch, h, s)
+            rx = _batched_resize_matrix(x0, cw, w, s, flip)
+            if self.blur_ksize > 0 and self.blur_before_crop:
+                taps = self._blur_taps(p, imgs.device)
+                ry, rx = _compose_blur(ry, taps), _compose_blur(rx, taps)
+            tmp = torch.einsum("bsh,bhwc->bswc", ry, imgs)
+            out = torch.einsum("btw,bswc->bstc", rx, tmp)
         if not self.jitter_before_crop:
             out = self._pointwise(out, p)
         if self.blur_ksize > 0 and not self.blur_before_crop:
@@ -317,31 +375,41 @@ class AugmentPipeline:
         return self.apply(images, self.sample(gen, b, h, w, apply_rate))
 
 
-def _no_rotation(recipe: str, target: str) -> None:
-    if target.lower() != "dvm":
-        raise NotImplementedError(
-            f"the {target!r} {recipe} recipe (rotation, affine warp) is "
-            f"not ported to stil_tta_torch yet (ROADMAP.md)")
-
-
 def contrastive_pipeline(img_size: int, target: str,
                          crop_scale_lower: float = 0.08
                          ) -> AugmentPipeline:
-    """``grab_image_augmentations`` (``utils.py:46-91``), DVM only:
-    jitter with p 0.8 on the full image, grayscale p 0.2, a 29-tap blur
-    p 0.5 composed into the crop's matrices."""
-    _no_rotation("contrastive", target)
+    """``grab_image_augmentations`` (``utils.py:46-91``). DVM: jitter
+    with p 0.8 on the full image, grayscale p 0.2, a 29-tap blur p 0.5
+    composed into the crop's matrices. Cardiac: jitter 0.5 with p 1, a
+    (0.2, 1) crop and a rotation of up to 45 degrees, at raw scale."""
+    if target.lower() == "dvm":
+        return AugmentPipeline(
+            img_size, crop_scale=(crop_scale_lower, 1.0),
+            jitter=(0.8, 0.8, 0.8, 0.0), jitter_p=0.8, gray_p=0.2,
+            blur_ksize=29, blur_sigma=(0.1, 2.0), blur_p=0.5)
     return AugmentPipeline(
-        img_size, crop_scale=(crop_scale_lower, 1.0),
-        jitter=(0.8, 0.8, 0.8, 0.0), jitter_p=0.8, gray_p=0.2,
-        blur_ksize=29, blur_sigma=(0.1, 2.0), blur_p=0.5)
+        img_size, crop_scale=(0.2, 1.0), rotate_limit=45.0,
+        jitter=(0.5, 0.5, 0.5, 0.0), jitter_p=1.0, scale_255=False)
+
+
+def soft_eval_pipeline(img_size: int, target: str) -> AugmentPipeline:
+    """``grab_soft_eval_image_augmentations`` (``utils.py:94-136``), both
+    targets: a (0.8, 1) crop, a rotation of up to 20 degrees, jitter 0.25
+    with p 1."""
+    return AugmentPipeline(
+        img_size, crop_scale=(0.8, 1.0), rotate_limit=20.0,
+        jitter=(0.25, 0.25, 0.25, 0.0), jitter_p=1.0,
+        scale_255=target.lower() == "dvm")
 
 
 def hard_eval_pipeline(img_size: int, target: str) -> AugmentPipeline:
-    """``grab_hard_eval_image_augmentations`` (``utils.py:139-184``),
-    DVM only: the contrastive recipe with a (0.6, 1) crop scale."""
-    _no_rotation("hard-eval", target)
-    return contrastive_pipeline(img_size, target, 0.6)
+    """``grab_hard_eval_image_augmentations`` (``utils.py:139-184``): the
+    DVM contrastive recipe with a (0.6, 1) crop scale; for the cardiac
+    targets the cardiac contrastive recipe with a (0.6, 1) crop scale."""
+    if target.lower() == "dvm":
+        return contrastive_pipeline(img_size, target, 0.6)
+    return dataclasses.replace(contrastive_pipeline(img_size, target),
+                               crop_scale=(0.6, 1.0))
 
 
 def weak_pipeline(img_size: int, target: str) -> AugmentPipeline:

@@ -1,5 +1,5 @@
-"""Dataset assembly from config (the part of
-``stil_tta_tpu/data/datasets.py`` the test-time path uses).
+"""Dataset assembly from config, the port of
+``stil_tta_tpu/data/datasets.py``.
 
 Two modes: native artifact directories (``{data_base}/{split}`` or
 explicit ``data_{split}`` keys), or ``synthetic: true`` with sizes from
@@ -48,14 +48,38 @@ def load_sources(cfg) -> Dict[str, ArraySource]:
 
 def attach_missing_masks(sources: Dict[str, ArraySource],
                          cfg) -> Dict[str, ArraySource]:
-    """Only ``missing_tabular: false`` is ported: the sources pass
-    through. The masked-tabular evaluation mode (mask files or
-    generated masks) is still to port (ROADMAP.md)."""
-    if cfg.missing_tabular:
-        raise NotImplementedError(
-            "missing_tabular is not ported to stil_tta_torch yet "
-            "(see ROADMAP.md)")
-    return sources
+    """Set ``source.missing`` for the ``missing_tabular`` mode
+    (``datasets.py:55-98``). Per split, in order: a mask the source
+    already carries; ``missing_mask.npy`` in the split's directory; for
+    ``missing_strategy`` ``feature``, ``MI`` or ``LI`` the same columns in
+    every split (seed 0); else (``random``) an i.i.d. mask at seed ``1000
+    + i`` for the i-th split. Without ``missing_tabular`` the sources
+    pass through."""
+    if not cfg.missing_tabular:
+        return sources
+    from stil_tta_torch.dataprep.missing_mask import (feature_missing_mask,
+                                                      random_missing_mask)
+
+    rate = float(cfg.missing_rate or 0.0)
+    strategy = str(cfg.missing_strategy or "random")
+    base = Path(cfg.data_base or ".")
+    out = {}
+    for i, (split, src) in enumerate(sources.items()):
+        if src.missing is not None:
+            out[split] = src
+            continue
+        key = cfg.get(f"data_{split}")
+        mask_file = (Path(key) if key else base / split) / "missing_mask.npy"
+        if mask_file.exists():
+            mask = np.load(mask_file)
+        elif strategy in ("feature", "MI", "LI"):
+            mask = feature_missing_mask(len(src), src.tabular.shape[1],
+                                        rate, seed=0)
+        else:
+            mask = random_missing_mask(len(src), src.tabular.shape[1],
+                                       rate, seed=1000 + i)
+        out[split] = dataclasses.replace(src, missing=mask.astype(bool))
+    return out
 
 
 def apply_sweep_truncation(sources: Dict[str, ArraySource],

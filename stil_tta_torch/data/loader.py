@@ -1,13 +1,13 @@
 """Epoch samplers and the device-resident dataset cache (the part of
-``stil_tta_tpu/data/loader.py`` STiL uses).
+``stil_tta_tpu/data/loader.py`` the ported algorithms use).
 
 :class:`DeviceCache` puts a whole split on the card once (uint8 images
 are small: 2,048 DVM test images at 128² are 100 MB), so a batch is an
 index gather on the device and the host only makes index vectors.
-:class:`EpochSampler` and :class:`CyclingSampler` draw the same
-permutations as the JAX package's (``np.random.RandomState``), so both see
-batches in the same order. The host-stream path for splits larger than
-device memory is not ported.
+:class:`EpochSampler`, :class:`CyclingSampler` and
+:class:`WeightedSampler` draw the same indices as the JAX package's
+(``np.random.RandomState``), so both see batches in the same order. The
+host-stream path for splits larger than device memory is not ported.
 """
 
 from __future__ import annotations
@@ -67,6 +67,28 @@ class CyclingSampler:
         except StopIteration:
             self._it = self.sampler.epoch()
             return next(self._it)
+
+
+class WeightedSampler:
+    """Class-weighted sampling with replacement (``loader.py:100-117``;
+    the reference's ``WeightedRandomSampler``, ``trainers/evaluate.py:
+    108-112``): a row's weight is its label's class weight. Draws come
+    from ``np.random.RandomState(seed)``, index for index the JAX
+    package's."""
+
+    def __init__(self, labels: np.ndarray, class_weights, batch_size: int,
+                 seed: int = 0):
+        w = np.asarray([class_weights[int(lab)] for lab in labels],
+                       np.float64)
+        self.p = w / w.sum()
+        self.n = len(labels)
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+
+    def next(self) -> tuple:
+        idx = self.rng.choice(self.n, size=self.batch_size, replace=True,
+                              p=self.p)
+        return idx.astype(np.int32), np.ones(self.batch_size, np.float32)
 
 
 class DeviceCache:

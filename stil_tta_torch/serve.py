@@ -8,8 +8,7 @@ native-format split into a CSV:
     python -m stil_tta_torch.serve --config-name config_dvm_STiL \
         --checkpoint model.ckpt --source data/test --out predictions.csv
 
-Serves every algorithm of the registry (STiL, STiL_SAINT, MMatch,
-CoTrain_Pseudo, CoTrain_Pseudo_SAINT, SimMatch, CoMatch, FreeMatch). The JAX package's data-parallel
+Serves every algorithm of the registry. The JAX package's data-parallel
 and int8 serving options are still to port (ROADMAP.md).
 """
 
@@ -54,8 +53,14 @@ class Predictor:
         net = self.algo.net.eval()
         out = net(self.algo.aug_eval(images), tabular)
         # STiL's nets return a dict of heads, the comparison families'
-        # a tuple led by the multimodal head's logits
-        logits = out["out_m"] if isinstance(out, dict) else out[0]
+        # a tuple led by the multimodal head's logits, TabularNet the
+        # logits alone (``serve.py:82-92``)
+        if isinstance(out, dict):
+            logits = out["out_m"]
+        elif isinstance(out, tuple):
+            logits = out[0]
+        else:
+            logits = out
         return torch.softmax(logits.float(), dim=1)
 
     def __call__(self, images: np.ndarray,

@@ -2,20 +2,20 @@
 validation / test scoring, the port of ``stil_tta_tpu/train/evaluate.py``.
 
 :func:`evaluate` trains an algorithm of the registry
-(``algorithms/registry.py``: STiL, STiL_SAINT, MMatch, CoTrain_Pseudo,
-CoTrain_Pseudo_SAINT, SimMatch, CoMatch, FreeMatch) on the labelled and unlabelled splits, held on the
-device (:class:`DeviceCache`): the unlabelled stream defines the epoch
-(dropped last), the labelled stream cycles; both samplers are seeded per
-epoch, so a resumed run replays the uninterrupted one. Each epoch
-validates, keeps the best checkpoint and stops early as the reference
-does; with ``test_and_eval`` the best checkpoint is then scored on the
-test split. ``checkpoint_SAINT`` loads a somepago/saint-layout ``.pth``
-into the student's SAINT tabular encoder (STiL_SAINT,
-CoTrain_Pseudo_SAINT). Not ported (each raises ``NotImplementedError``):
-``host_stream``, ``weighted_sampler``, a ``.ckpt``/``.pth`` warm start,
-the encoder freeze of ``stil_tta_torch.train.optim``, and STiL's
-``teacher_int8`` (the other families accept and ignore it, as the JAX
-package does).
+(``algorithms/registry.py``: any of its ten names) on the labelled and
+unlabelled splits, held on the device (:class:`DeviceCache`): the
+unlabelled stream defines the epoch (dropped last), the labelled stream
+cycles (or, with ``weighted_sampler`` and class ``weights``, is drawn
+with replacement by class weight); both samplers are seeded per epoch,
+so a resumed run replays the uninterrupted one. Each epoch validates,
+keeps the best checkpoint and stops early as the reference does; with
+``test_and_eval`` the best checkpoint is then scored on the test split.
+``checkpoint_SAINT`` loads a somepago/saint-layout ``.pth`` into the
+student's SAINT tabular encoder (STiL_SAINT, CoTrain_Pseudo_SAINT). Not
+ported (each raises ``NotImplementedError``): ``host_stream``, a
+``.ckpt``/``.pth`` warm start, the encoder freeze of
+``stil_tta_torch.train.optim``, and STiL's ``teacher_int8`` (the other
+families accept and ignore it, as the JAX package does).
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -36,7 +36,7 @@ import torch
 from scipy.stats import rankdata
 
 from stil_tta_torch.data.loader import (CyclingSampler, DeviceCache,
-                                        EpochSampler)
+                                        EpochSampler, WeightedSampler)
 
 
 def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
@@ -170,7 +170,6 @@ def _refuse_unported(cfg) -> None:
     get_algorithm(cfg.algorithm_name)
     unported = {
         "host_stream": bool(cfg.host_stream),
-        "weighted_sampler": bool(cfg.weighted_sampler and cfg.weights),
         "a .ckpt/.pth warm start": (
             not cfg.resume_training
             and str(cfg.checkpoint or "").endswith((".ckpt", ".pth"))),
@@ -256,8 +255,12 @@ def evaluate(cfg, logdir: Optional[Path] = None,
         uninterrupted one."""
         u = EpochSampler(len(src_u), u_batch, shuffle=True, drop_last=True,
                          seed=seed0 + 100003 * epoch_idx)
-        lab = CyclingSampler(len(src_l), l_batch,
-                             seed=seed0 + 100003 * epoch_idx + 1)
+        if cfg.weighted_sampler and cfg.weights:
+            lab = WeightedSampler(src_l.labels, cfg.weights, l_batch,
+                                  seed=seed0 + 100003 * epoch_idx + 1)
+        else:
+            lab = CyclingSampler(len(src_l), l_batch,
+                                 seed=seed0 + 100003 * epoch_idx + 1)
         return lab, u
 
     eval_metric = cfg.eval_metric or ("acc" if cfg.target == "dvm"

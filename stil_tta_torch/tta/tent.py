@@ -139,13 +139,13 @@ def adapt(cfg, algo, cache: dict, stats: StatsFn = bn_stats
         raise ValueError(f"unknown tta_strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
     if strategy != "bn_adapt" and not algo.entropy_tta:
-        # these nets return a tuple of heads; the JAX package's entropy
-        # phases index it by "out_m" and fail, and no head is picked here
-        # that the reference never picked
+        # these nets return a tuple of heads or bare logits; the JAX
+        # package's entropy phases index the output by "out_m" and fail,
+        # and no head is picked here that the reference never picked
         raise ValueError(
             f"tta_strategy={strategy} needs the multimodal head of STiL's "
-            f"net; {algo.name} returns a tuple of heads and supports "
-            f"tta_strategy=bn_adapt only, as the JAX package does")
+            f"net; {algo.name}'s net returns no head by that name and "
+            f"supports tta_strategy=bn_adapt only, as the JAX package does")
     counts = {"stats_batches": estimate_bn_stats(cfg, algo, cache, stats)}
     if strategy in ("eata", "sar"):
         from stil_tta_torch.tta import methods
@@ -162,9 +162,13 @@ def estimate_bn_stats(cfg, algo, cache: dict,
     """BN-statistics re-estimation on the test cache (one momentum sweep
     of ``tta_momentum``); returns the number of batches. ``stats``
     computes the per-channel sums: the ``bn_stats`` kernel unless a
-    caller passes another function to compare with."""
+    caller passes another function to compare with. A net without an
+    image tower has no statistics: no batch runs."""
     momentum = float(knob(cfg.tta_momentum, 0.1))
     tower = image_tower(algo.net)
+    if tower is None:
+        # no BatchNorm (TabularNet): the JAX sweep runs and changes nothing
+        return 0
     bns = [m for m in tower.modules() if isinstance(m, BatchNorm2d)]
     saved = [(m.momentum, m.stats) for m in bns]
     for m in bns:

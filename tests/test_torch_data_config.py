@@ -109,9 +109,14 @@ def test_load_sources_and_truncation_match_jax(extra):
         np.testing.assert_array_equal(ours[split].tabular,
                                       ref[split].tabular)
     assert datasets.attach_missing_masks(ours, cfg) is ours
-    cfg.missing_tabular = True
-    with pytest.raises(NotImplementedError):
-        datasets.attach_missing_masks(ours, cfg)
+    # with missing_tabular, the masks of the JAX package (the strategies
+    # are in tests/test_torch_missing.py)
+    cfg.missing_tabular = jcfg.missing_tabular = True
+    masked = datasets.attach_missing_masks(ours, cfg)
+    jmasked = jdatasets.attach_missing_masks(ref, jcfg)
+    for split in jmasked:
+        np.testing.assert_array_equal(masked[split].missing,
+                                      jmasked[split].missing)
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, False), (False, False),

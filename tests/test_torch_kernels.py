@@ -37,10 +37,15 @@ RESNET50_SHAPES = [
     (32_768, 1024), (32_768, 512), (8_192, 512), (8_192, 2048),
 ]
 TAIL_SHAPES = [(300 * 4096, 64), (300 * 16, 2048)]
+# the same BatchNorms at batch 256 (cardiac), 64 (Supervised's labelled
+# rows at DVM batch 512) and 32 (cardiac Supervised): down to 512 x 2048
+SLICE9_SHAPES = sorted({(m * b // 512, c) for m, c in RESNET50_SHAPES
+                        for b in (256, 64, 32)} - set(RESNET50_SHAPES),
+                       reverse=True)
 
 
 @pytest.mark.parametrize("m,c", RESNET50_SHAPES + TAIL_SHAPES
-                         + [(7, 3), (1, 2048), (1000, 24)])
+                         + SLICE9_SHAPES + [(7, 3), (1, 2048), (1000, 24)])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_launch_config_covers_every_row_and_channel(m, c, itemsize):
     cfg = launch_config(m, c, itemsize, aligned=True)
@@ -87,6 +92,7 @@ def _coverage(plan, m, c):
 
 
 @pytest.mark.parametrize("m,c", RESNET50_SHAPES + TAIL_SHAPES
+                         + SLICE9_SHAPES
                          + [(7, 3), (1, 2048), (1000, 24), (1, 64),
                             (300, 264), (5000, 5000)])
 @pytest.mark.parametrize("itemsize", [2, 4])

@@ -97,11 +97,19 @@ def test_hue_round_trip_and_reflect_blur_match_jax():
 
 
 def test_rotating_recipes_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        augment.hard_eval_pipeline(IMG, "cardiac")
-    # the cardiac weak and strong recipes do not rotate
+    """No recipe is refused any more: the cardiac hard-eval recipe rotates
+    (its parity is in ``tests/test_torch_cardiac.py``), and the cardiac
+    weak and strong recipes do not rotate."""
+    hard = augment.hard_eval_pipeline(IMG, "cardiac")
+    jhard = jaug.hard_eval_pipeline(IMG, "cardiac")
+    for k in ("rotate_limit", "crop_scale", "jitter", "jitter_p",
+              "scale_255", "blur_ksize", "gray_p"):
+        assert getattr(hard, k) == getattr(jhard, k), k
+    assert hard.rotate_limit == 45.0 and not hard.scale_255
     assert not augment.weak_pipeline(IMG, "cardiac").scale_255
     assert augment.strong_pipeline(IMG, "cardiac").gray_p == 0.0
+    assert augment.weak_pipeline(IMG, "cardiac").rotate_limit == \
+        augment.strong_pipeline(IMG, "cardiac").rotate_limit == 0.0
 
 
 @pytest.mark.parametrize("multimodal", [False, True])

@@ -309,19 +309,24 @@ def test_predictor_pads_the_tail_as_jax(reference):
 
 
 def test_registry_holds_the_ported_algorithms():
-    """The port's classes by name; a name of the JAX registry still to
-    port raises ``NotImplementedError``, a name of neither registry
-    ``ValueError``, as the JAX registry raises it."""
+    """The port's classes by name, one for each of the JAX registry's ten
+    names; a name of neither registry raises ``ValueError``, as the JAX
+    registry raises it."""
     assert get_algorithm("STiL_SAINT") is STiL_SAINT
     assert STiL_SAINT.tabular_encoder == "saint"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_algorithm("Supervised")
+    from stil_tta_torch.algorithms.registry import ALGORITHMS
+    from stil_tta_tpu.algorithms import registry as jax_registry
+    jax_names = ["STiL", "STiL_SAINT", "MMatch", "CoTrain_Pseudo",
+                 "CoTrain_Pseudo_SAINT", "SimMatch", "CoMatch", "FreeMatch",
+                 "Supervised", "TabularEval"]
+    for name in jax_names:
+        jax_cls = jax_registry.get_algorithm(name)
+        assert get_algorithm(name).name == jax_cls.name, name
+    assert sorted(ALGORITHMS) == sorted(jax_names)
     with pytest.raises(ValueError, match="Algorithm name not found"):
         get_algorithm("CoTrainSAINT")
-    from stil_tta_tpu.algorithms.registry import \
-        get_algorithm as jax_get_algorithm
     with pytest.raises(ValueError, match="Algorithm name not found"):
-        jax_get_algorithm("CoTrainSAINT")
+        jax_registry.get_algorithm("CoTrainSAINT")
 
 
 def test_stil_saint_config_composes_like_jax():

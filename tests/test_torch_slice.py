@@ -16,6 +16,7 @@ standard deviation). Accuracies are equal and AUROCs agree to 1e-6."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ from stil_tta_tpu.data.datasets import load_sources as jax_load_sources
 from stil_tta_tpu.data.loader import DeviceCache as JaxDeviceCache
 from stil_tta_tpu.train.evaluate import run_validation as jax_run_validation
 from stil_tta_tpu.tta import adapt as jax_adapt
-from tests.torch_parity import assert_close, init_jax, to_numpy, x64
+from tests.torch_parity import assert_close, to_numpy, x64
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
 FIELD_LENGTHS = [5, 4, 2, 1, 1, 1]
@@ -75,8 +76,14 @@ def reference(tmp_path_factory):
         cfg = _cfg(jax_load_config)
         src = jax_load_sources(cfg)["test"]
         algo = JaxSTiL(cfg, FIELD_LENGTHS, dtype=jnp.float64)
-        variables = init_jax(algo.net, jnp.zeros((2, 32, 32, 3)),
-                             jnp.asarray(src.tabular[:2]), train=False)
+        # one jitted init: eager, the net's hundreds of small programs
+        # take three times as long to compile
+        key = jax.random.key(0)
+        variables = to_numpy(dict(jax.jit(
+            lambda img, tab: algo.net.init({"params": key, "dropout": key},
+                                           img, tab, train=False))(
+            jnp.zeros((2, 32, 32, 3)), jnp.asarray(src.tabular[:2]))),
+            np.float64)
         state = _State(variables["params"], variables["batch_stats"])
         cache = JaxDeviceCache(src).as_dict()
         adapted = jax_adapt(cfg, algo, state, cache)
@@ -201,9 +208,11 @@ def test_unported_entry_points_raise():
         port_main(["--config-name", "config_dvm_STiL", "--device", "cpu",
                    "dataset=synthetic_dvm", "evaluate=True", "test=False",
                    "host_stream=true"])
-    cfg = _cfg(load_config, missing_tabular=True)
-    with pytest.raises(NotImplementedError, match="missing_tabular"):
-        load_test_split(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_algo(_cfg(load_config, algorithm_name="Supervised"),
-                   FIELD_LENGTHS, device="cpu")
+    # missing_tabular and Supervised are ported: the test split carries
+    # its masks, and the registry builds Supervised
+    cfg = _cfg(load_config, missing_tabular=True, missing_rate=0.5)
+    src = load_test_split(cfg)
+    assert src.missing.shape == src.tabular.shape and src.missing.any()
+    algo = build_algo(_cfg(load_config, algorithm_name="Supervised"),
+                      FIELD_LENGTHS, device="cpu")
+    assert algo.name == "Supervised"

@@ -324,5 +324,10 @@ def test_contrastive_pipeline_apply_matches_jax_given_its_draws():
     own = pipe(torch.Generator().manual_seed(0), T(imgs), 0.7)
     assert own.shape == want.shape and 0 <= float(own.min()) <= \
         float(own.max()) <= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        augment.contrastive_pipeline(32, "cardiac")
+    # the cardiac recipe is the rotating one of the JAX package
+    cardiac = augment.contrastive_pipeline(32, "cardiac")
+    jcardiac = jaug.contrastive_pipeline(32, "cardiac")
+    assert (cardiac.rotate_limit, cardiac.crop_scale, cardiac.jitter,
+            cardiac.scale_255) == (jcardiac.rotate_limit, jcardiac.crop_scale,
+                                   jcardiac.jitter, jcardiac.scale_255) \
+        == (45.0, (0.2, 1.0), (0.5, 0.5, 0.5, 0.0), False)

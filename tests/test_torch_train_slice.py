@@ -196,13 +196,13 @@ def test_cli_resume_is_bitwise_exact_in_the_fast_profile(tmp_path):
 
 @pytest.mark.parametrize("override", [
     "host_stream=true", "teacher_int8=true", "checkpoint=warm.ckpt",
-    "algorithm_name=Supervised", "algorithm_name=Tent",
+    "model=wide_resnet50_2", "algorithm_name=Tent",
 ])
 def test_unported_training_options_raise(override, tmp_path):
     """Options still to port raise ``NotImplementedError`` naming
-    ROADMAP.md (``teacher_int8`` is STiL's refusal); a name that no
-    registry knows (``Tent``) raises ``ValueError``, as the JAX
-    registry does."""
+    ROADMAP.md (``teacher_int8`` is STiL's refusal, the wider ResNet the
+    image encoder's); a name that no registry knows (``Tent``) raises
+    ``ValueError``, as the JAX registry does."""
     cfg = load_config("config_dvm_STiL", OVERRIDES + [
         override, f"logdir={tmp_path}"])
     error, match = ((ValueError, "Algorithm name not found")

@@ -197,12 +197,13 @@ def compare_match_states(jstate, pstate, log_keys, loss_rtol=1e-8,
 
 def jax_augment_draws(pipe, key, b: int, h: int, w: int,
                       rate: float = 1.0):
-    """The parameters a JAX ``AugmentPipeline`` (without rotation) draws
-    from ``key`` for a batch of ``b`` (h, w) images, replaying
-    ``__call__``'s and ``_augment_one``'s key splits (``augment.py:
-    317-392``: per sample, ``ks[0]`` the jitter's five keys, ``ks[1]``
-    grayscale, ``ks[2]`` the blur's two keys before or after the crop,
-    ``ks[3]`` the crop box, ``ks[4]`` the flip), in the port's names."""
+    """The parameters a JAX ``AugmentPipeline`` draws from ``key`` for a
+    batch of ``b`` (h, w) images, replaying ``__call__``'s and
+    ``_augment_one``'s key splits (``augment.py:317-392``: per sample,
+    ``ks[0]`` the jitter's five keys, ``ks[1]`` grayscale, ``ks[2]`` the
+    blur's two keys before or after the crop, ``ks[3]`` the crop box,
+    ``ks[4]`` the flip, ``ks[5]`` the rotation angle), in the port's
+    names."""
     from stil_tta_tpu.data import augment as jaug
     k_gate, k_aug = jax.random.split(key)
     u = lambda k, lo=0.0, hi=1.0: float(  # noqa: E731
@@ -214,6 +215,7 @@ def jax_augment_draws(pipe, key, b: int, h: int, w: int,
         names += ["hue"] if jitter[3] > 0 else []
     names += ["gray_on"] if pipe.gray_p > 0 else []
     names += ["blur_sigma", "blur_on"] if pipe.blur_ksize > 0 else []
+    names += ["angle"] if pipe.rotate_limit > 0 else []
     p = {k: [] for k in names}
     for key_i in jax.random.split(k_aug, b):
         ks = jax.random.split(key_i, 6)
@@ -236,6 +238,9 @@ def jax_augment_draws(pipe, key, b: int, h: int, w: int,
         for name, v in zip(("y0", "x0", "ch", "cw"), box):
             p[name].append(float(v))
         p["flip"].append(u(ks[4]) < pipe.hflip_p)
+        if pipe.rotate_limit > 0:
+            lim = jnp.deg2rad(pipe.rotate_limit)
+            p["angle"].append(u(ks[5], -lim, lim))
     out = {k: torch.tensor(v) for k, v in p.items()}
     out["gate"] = (torch.ones(b, dtype=torch.bool) if rate >= 1.0 else
                    torch.tensor(np.asarray(
@@ -430,19 +435,12 @@ def reference_ckpt(payload: dict, algorithm: str, path) -> None:
     torch.save({"state_dict": sd}, path)
 
 
-def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
+def cli_resume_exact(name: str, tmp_path, *extra) -> dict:
     """``python -m stil_tta_torch.run`` on the CPU at test size: two
     epochs straight through equal bitwise one epoch and a resumed second
-    (student, teacher, Adam, buffers, generators, sums); then the test
-    entry point with BN-adapt on the resumed run's weights written in the
-    reference's checkpoint layout, which loads strictly, and
-    ``Predictor`` on those weights. Returns the resumed run's last
-    checkpoint."""
+    (net, teacher, Adam, buffers, generators, sums). Returns the resumed
+    run's last checkpoint; the three runs' directories are removed."""
     from stil_tta_torch import run as port_run
-    from stil_tta_torch.config import load_config
-    from stil_tta_torch.data.loader import DeviceCache
-    from stil_tta_torch.serve import Predictor
-    from stil_tta_torch.train.test import build_algo, load_test_split
     base = ["--config-name", name] + FIX_CLI + FIX_TRAIN + list(extra)
     assert port_run.main(base + ["max_epochs=2",
                                  f"logdir={tmp_path / 'a'}"]) == 0
@@ -457,8 +455,26 @@ def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
     resumed = torch.load(tmp_path / "c" / "checkpoint_last",
                          weights_only=True)
     assert straight["step"] == resumed["step"] == 8
-    assert straight["ema"] is not None and straight["extra"]
     assert_equal_tree(straight, resumed)
+    # the checkpoints take up to 600 MB: free them
+    for part in ("a", "b", "c"):
+        shutil.rmtree(tmp_path / part)
+    return resumed
+
+
+def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
+    """:func:`cli_resume_exact` for a FixMatch family (a teacher and
+    buffers); then the test entry point with BN-adapt on the resumed
+    run's weights written in the reference's checkpoint layout, which
+    loads strictly, and ``Predictor`` on those weights. Returns the
+    resumed run's last checkpoint."""
+    from stil_tta_torch import run as port_run
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.test import build_algo, load_test_split
+    resumed = cli_resume_exact(name, tmp_path, *extra)
+    assert resumed["ema"] is not None and resumed["extra"]
 
     cfg = load_config(name, FIX_CLI[2:] + list(extra))
     ckpt = tmp_path / "reference.ckpt"
@@ -478,8 +494,5 @@ def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
         "test=True", "evaluate=False", "tta=True", "tta_strategy=bn_adapt",
         f"checkpoint={ckpt}", f"logdir={tmp_path / 't'}"] + list(extra)) == 0
     assert (tmp_path / "t" / "test_results.csv").exists()
-    # the four checkpoints take about 600 MB: free them
-    for part in ("a", "b", "c"):
-        shutil.rmtree(tmp_path / part)
     ckpt.unlink()
     return resumed
