@@ -45,17 +45,22 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
    at every shape in phase 3): loss, gradients, parameters and BN running
    statistics side by side, and the kernel run's launches.
 8. Profile of one bfloat16 train step: device busy time against the
-   host's clock, the shares of the two kernels and of BN's elementwise
-   work, and the top kernels.
+   host's clock, the shares of the two BN reduction kernels and of BN's
+   elementwise work, and the top kernels. Each reduction is one
+   cooperative kernel a call: the step must show 53
+   ``bn_bwd_reduce_kernel`` events and no ``column_sums`` kernel (every
+   profiled step of phases 13-16 is held to the latter too).
 9. Timing: per shape, each kernel, its device-memory bound, the plain
    version and the library call that computes the same sums
    (``torch.batch_norm_stats``, ``torch.batch_norm_backward_reduce``;
    never called by the port), with the L2 cache flushed before every
    launch (and ``bn_stats`` also after a flush that only reads, which
-   leaves no dirty lines in L2); ``bn_stats``'s plan beside each shape,
-   its registers, shared memory and spills (the ``-Xptxas -v`` report),
-   and its per-call floor (one row a block) beside ``x.add_(0)``; then
-   both kernels again at the cardiac batch-256 shapes.
+   leaves no dirty lines in L2); each kernel's plan beside each shape,
+   the count of backward shapes slower than the library call, both
+   sources' registers, shared memory and spills (the ``-Xptxas -v``
+   report; a spill fails the run), and both kernels' per-call floor (one
+   row a block) beside ``x.add_(0)``; then both kernels again at the
+   cardiac batch-256 shapes.
 10. TTA strategies at full width: ``test()`` with ``tta_strategy`` tent,
     eata and sar on the configuration of phase 4, each with its metrics,
     wall time and ``bn_stats`` launches (53 x 4, the stats phase); then
@@ -593,17 +598,22 @@ def profile_train_step(state, step, batch, tag: str = "m=1") -> dict:
     n_kernels = sum(e.count for e in events)
     part = lambda tag: sum(dev_time(e) for e in events  # noqa: E731
                            if tag in e.key) / 1e3
-    # bn_stats is one kernel a call; bn_bwd_reduce's second pass is
-    # bn_reduce::column_sums_kernel
+    # each BN reduction is one kernel a call: no column_sums pass
     stats_ms = part("bn_stats_kernel")
-    bwd_ms = part("bn_bwd_partial") + part("column_sums")
+    bwd_ms = part("bn_bwd_reduce_kernel")
+    count = lambda tag: sum(e.count for e in events  # noqa: E731
+                            if tag in e.key)
+    bwd_kernels, pass2 = count("bn_bwd_reduce_kernel"), count("column_sums")
+    if pass2:
+        raise SystemExit(f"train step ({tag}): {pass2} column_sums kernels; "
+                         f"bn_bwd_reduce must be one kernel a call")
 
     def kernels_under(e):
         yield from e.kernels
         for ch in e.cpu_children:
             yield from kernels_under(ch)
 
-    ours = ("bn_stats_kernel", "bn_bwd_partial", "column_sums")
+    ours = ("bn_stats_kernel", "bn_bwd_reduce_kernel")
     elem_ms = sum(k.duration for e in prof.events()
                   if e.name.startswith("bn_train.")
                   and e.device_type == DeviceType.CPU
@@ -612,12 +622,14 @@ def profile_train_step(state, step, batch, tag: str = "m=1") -> dict:
     out = {"host_ms": host_ms, "profiled_host_ms": prof_host_ms,
            "busy_ms": busy, "bn_stats_ms": stats_ms,
            "bn_bwd_reduce_ms": bwd_ms, "bn_elementwise_ms": elem_ms,
-           "kernel_launches": n_kernels}
+           "kernel_launches": n_kernels,
+           "bn_bwd_reduce_kernels": bwd_kernels}
     log(f"[profile] train step ({tag}): host clock {host_ms:.3f} ms (median of "
         f"{', '.join(f'{t:.3f}' for t in host)}; profiled "
         f"{prof_host_ms:.3f} ms), device busy {busy:.3f} ms, idle share "
         f"{1 - busy / host_ms:.1%}; {n_kernels} kernel launches, "
-        f"{host_ms / max(n_kernels, 1) * 1e3:.1f} us of host clock each")
+        f"{host_ms / max(n_kernels, 1) * 1e3:.1f} us of host clock each; "
+        f"{bwd_kernels} bn_bwd_reduce kernels, {pass2} column_sums")
     for name, ms in (("bn_stats", stats_ms), ("bn_bwd_reduce", bwd_ms),
                      ("BN elementwise (fwd + bwd)", elem_ms)):
         log(f"[profile]   {name}: {ms:.3f} ms ({ms / max(busy, 1e-9):.1%} "
@@ -1211,7 +1223,8 @@ def time_backward(shapes, gen, dev, buf, batch: int) -> tuple:
     read, two sums out; returns the backward's totals and what bounds
     it."""
     from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
-                                               bn_bwd_reduce_plain)
+                                               bn_bwd_reduce_plain,
+                                               bn_bwd_reduce_plan)
     lib_bwd = lambda t: torch.batch_norm_backward_reduce(  # noqa: E731
         t[1], t[0], t[2], t[3], t[4], True, True, True)
     tot_b = collections.defaultdict(float)
@@ -1230,13 +1243,20 @@ def time_backward(shapes, gen, dev, buf, batch: int) -> tuple:
         nbytes = 2 * m * c * 2 + 4 * c * 4
         nops = 5 * m * c
         bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
+        plan = bn_bwd_reduce_plan(x, dy)
         log(f"[time] bwd M={m:>9,d} C={c:>5d} x{n:<2d} kernel {t_k:.4f} ms "
-            f"bound {bound:.4f} ms ({bound / t_k:.0%} of bound) plain "
-            f"{t_p:.4f} ms batch_norm_backward_reduce {t_l:.4f} ms")
+            f"bound {bound:.4f} ms ({bound / t_k:.1%} of bound) plain "
+            f"{t_p:.4f} ms batch_norm_backward_reduce {t_l:.4f} ms "
+            f"({t_l / t_k:.2f}x the kernel's); plan grid {plan.grid}, "
+            f"{plan.tiles} tile(s) of {plan.tile_c} x {plan.chunks} chunks "
+            f"of {plan.rows_per_chunk} rows, {plan.stages} stages of "
+            f"{plan.stage_rows} rows ({plan.stage_bytes:,d} bytes of x and "
+            f"of dy), smem {plan.smem:,d}")
         tot_b["ms"] += n * t_k
         tot_b["plain_ms"] += n * t_p
         tot_b["library_ms"] += n * t_l
         tot_b["bound_ms"] += n * bound
+        tot_b["slower_than_library"] += t_k > t_l
         nbytes_all += n * nbytes
         nops_all += n * nops
         del x, dy, args
@@ -1247,7 +1267,8 @@ def time_backward(shapes, gen, dev, buf, batch: int) -> tuple:
         f"({nbytes_all / 1e9:.3f} GB; the kernel at "
         f"{tot_b['bound_ms'] / tot_b['ms']:.1%} of it), plain "
         f"{tot_b['plain_ms']:.4f} ms, batch_norm_backward_reduce "
-        f"{tot_b['library_ms']:.4f} ms")
+        f"{tot_b['library_ms']:.4f} ms; {int(tot_b['slower_than_library'])}"
+        f" of {len(shapes)} shapes slower than the library call")
     return tot_b, bound_by
 
 
@@ -1490,15 +1511,24 @@ def main() -> int:
     state = algo.init_state(0)
     set_learning_rate(state.optimizer, STEP_LR)
     single = profile_train_step(state, step, batch)
+    if single["bn_bwd_reduce_kernels"] != 53:
+        raise SystemExit(f"{single['bn_bwd_reduce_kernels']} bn_bwd_reduce "
+                         f"kernels in a train step, 53 expected")
     del algo, state, step, batch
     clock.lap("8 step profile")
 
     # ---- 9. timing per shape (bfloat16, the path's dtype)
-    ptxas = ptxas_report("bn_stats")
-    for entry, report in ptxas.items():
-        log(f"[time] bn_stats ptxas {entry}: {report}")
-    if not any("bn_stats_kernel" in k for k in ptxas):
-        raise SystemExit("no ptxas report for bn_stats")
+    for source in ("bn_stats", "bn_bwd_reduce"):
+        ptxas = ptxas_report(source)
+        for entry, report in ptxas.items():
+            log(f"[time] {source} ptxas {entry}: {report}")
+        if not any(f"{source}_kernel" in k for k in ptxas):
+            raise SystemExit(f"no ptxas report for {source}")
+        spills = [k for k, v in ptxas.items() if f"{source}_kernel" in k
+                  and " 0 bytes spill stores, 0 bytes spill loads" not in
+                  f" {v}"]
+        if spills:
+            raise SystemExit(f"{source}: a kernel variant spills: {spills}")
     buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     # a flush that reads: L2 then holds clean lines only
     clean = torch.ones(64 * 2**20, device=dev)
@@ -1506,10 +1536,16 @@ def main() -> int:
     del clean
     # the cost of a call that moves almost no bytes: one row a block,
     # beside one elementwise kernel on the same input
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce
     x = torch.randn(132, 256, generator=gen, device=dev).to(torch.bfloat16)
+    floor_args = (x, x.clone(), torch.zeros(256, device=dev),
+                  torch.ones(256, device=dev))
     log(f"[time] per-call floor at M=132 C=256: bn_stats "
-        f"{time_ms(bn_stats, x, buf) * 1e3:.2f} us, x.add_(0) "
-        f"{time_ms(lambda t: t.add_(0), x, buf) * 1e3:.2f} us")
+        f"{time_ms(bn_stats, x, buf) * 1e3:.2f} us, bn_bwd_reduce "
+        f"{time_ms(lambda t: bn_bwd_reduce(*t), floor_args, buf) * 1e3:.2f}"
+        f" us, x.add_(0) {time_ms(lambda t: t.add_(0), x, buf) * 1e3:.2f} "
+        f"us")
+    del floor_args
     tot_b, bound_by_b = time_backward(per_forward, gen, dev, buf, BATCH)
     # the cardiac batch's shapes
     cardiac_shapes = collections.Counter(resnet50_bn_shapes(dev,

@@ -39,13 +39,14 @@ from torch import nn
 from stil_tta_torch.ops import cuda_build
 
 THREADS = 256          # kThreads in csrc/bn_reduce_common.cuh
-TARGET_BLOCKS = 132 * 8  # bn_bwd_reduce: eight blocks for each of 132 SMs
-# bn_stats (csrc/bn_stats.cu): its ring, tiles and grid
-STAGE_BYTES = 32 * 1024  # a ring stage holds up to this many bytes of rows
+# the one-launch reduction of csrc/bn_reduce_ring.cuh: its ring, tiles, grid
+STAGE_BYTES = 32 * 1024  # bn_stats: bytes of rows a ring stage holds
+BWD_STAGE_BYTES = 16 * 1024  # bn_bwd_reduce: of each of x and dy
 STAGE_ROWS = 256         # and at most this many rows (a TMA box's limit)
 STAGES = 4               # ring depth: kMaxStages
 MAX_TILE_C = 256         # channels of a column tile: kMaxTile
 MAX_BLOCKS_PER_SM = 2    # more blocks an SM add partial rows, not bandwidth
+MIN_BLOCK_BYTES = 32 * 1024  # bn_bwd_reduce: input bytes a block, at least
 SMEM_FIXED = 256         # kSmemFixed: the mbarriers and 128 bytes to align
 SMEM_LIMIT = 232_448     # shared memory a block may use on the H100
 
@@ -72,52 +73,22 @@ def bn_bwd_reduce_plain(x2d: Tensor, dy2d: Tensor, mean: Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
-class LaunchConfig:
-    """How ``bn_bwd_reduce`` cuts an (M, C) input:
-    ``vec`` elements per 16-byte load (1 when unaligned), ``threads_c``
-    threads across a channel tile, ``chunks`` row chunks of
-    ``rows_per_chunk`` rows."""
+class ReducePlan:
+    """How a one-launch reduction kernel (``csrc/bn_reduce_ring.cuh``)
+    cuts its (M, C) inputs; the kernel checks the plan before launch.
 
-    vec: int
-    threads_c: int
-    chunks: int
-    rows_per_chunk: int
-
-
-def launch_config(m: int, c: int, itemsize: int,
-                  aligned: bool) -> LaunchConfig:
-    vec = 16 // itemsize
-    if not aligned or c % vec:
-        vec = 1
-    units = c // vec
-    threads_c = 1
-    while threads_c < min(units, 32):
-        threads_c *= 2
-    tile_c = threads_c * vec
-    tiles = -(-c // tile_c)
-    rows_per_step = THREADS // threads_c
-    chunks = max(1, min(-(-TARGET_BLOCKS // tiles), -(-m // rows_per_step)))
-    rows_per_chunk = -(-m // chunks)
-    return LaunchConfig(vec, threads_c, -(-m // rows_per_chunk),
-                        rows_per_chunk)
-
-
-@dataclasses.dataclass(frozen=True)
-class StatsPlan:
-    """How the ``bn_stats`` kernel cuts an (M, C) input
-    (``csrc/bn_stats.cu``, which checks it before launch).
-
-    ``vec`` elements per 16-byte unit (1: the variant that reads x
-    directly, for an unaligned base or a row that is not a multiple of 16
-    bytes). The channels go in ``tiles`` column tiles of ``tile_c``
+    ``vec`` elements per 16-byte unit (1: the variant that reads the
+    inputs directly, for an unaligned base or a row that is not a multiple
+    of 16 bytes). The channels go in ``tiles`` column tiles of ``tile_c``
     (a multiple of ``vec``; tile_c / vec threads lie across a tile's row).
     The rows go in ``chunks`` contiguous chunks of ``rows_per_chunk``;
     each (tile, chunk) is one block's item, block b takes the items b,
     b + grid, ... The ring (vec > 1) has ``stages`` stages of
-    ``stage_rows`` rows, ``stage_bytes`` of data each, ``stage_pitch``
-    apart. ``smem`` bytes of dynamic shared memory a block. The partial
-    buffer has one row of 2C floats per chunk; the combine adds
-    ``combine_cols`` output columns a block at a time."""
+    ``stage_rows`` rows of each input, ``stage_bytes`` of data an input,
+    each input's part 128-byte aligned, ``stage_pitch`` bytes from one
+    stage to the next. ``smem`` bytes of dynamic shared memory a block.
+    The partial buffer has one row of 2C floats per chunk; the combine
+    adds ``combine_cols`` output columns a block at a time."""
 
     vec: int
     tile_c: int
@@ -133,12 +104,16 @@ class StatsPlan:
     combine_cols: int
 
 
-def stats_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
-               blocks_per_sm: int) -> StatsPlan:
-    """The ``bn_stats`` launch for (m, c) of ``itemsize`` bytes on a card
-    with ``sms`` SMs that hold ``blocks_per_sm`` of its blocks each. The
-    shared memory does not depend on the last two, so the wrapper can ask
-    the card how many blocks of that size an SM holds first."""
+def _reduce_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
+                 blocks_per_sm: int, inputs: int, stage_bytes: int,
+                 min_block_bytes: int) -> ReducePlan:
+    """The plan of ``inputs`` (M, C) inputs on a card with ``sms`` SMs
+    that hold ``blocks_per_sm`` blocks each: at most
+    ``min(blocks_per_sm, MAX_BLOCKS_PER_SM)`` blocks an SM and, when
+    ``min_block_bytes`` is set, at most one block for each
+    ``min_block_bytes`` of input. The shared memory does not depend on
+    ``sms`` and ``blocks_per_sm``, so the wrapper can ask the card how
+    many blocks of that size an SM holds first."""
     vec = 16 // itemsize
     if not aligned or c % vec:
         vec = 1
@@ -146,12 +121,15 @@ def stats_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
     tile_c = -(-(-(-c // tiles)) // vec) * vec
     tiles = -(-c // tile_c)
     target = max(1, sms * min(blocks_per_sm, MAX_BLOCKS_PER_SM))
+    if min_block_bytes:
+        target = max(1, min(target,
+                            inputs * m * c * itemsize // min_block_bytes))
     chunks_goal = max(1, target // tiles)
     if vec > 1:
         row_bytes = tile_c * itemsize
-        stage_rows = max(1, min(STAGE_BYTES // row_bytes, STAGE_ROWS))
+        stage_rows = max(1, min(stage_bytes // row_bytes, STAGE_ROWS))
         stage_bytes = stage_rows * row_bytes
-        stage_pitch = -(-stage_bytes // 128) * 128
+        stage_pitch = inputs * (-(-stage_bytes // 128) * 128)
         stages = STAGES
     else:
         stage_rows = stage_bytes = stages = stage_pitch = 0
@@ -162,9 +140,30 @@ def stats_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
     combine_cols = 1
     while combine_cols < min(-(-2 * c // grid), THREADS):
         combine_cols *= 2
-    return StatsPlan(vec, tile_c, tiles, stage_rows, stage_bytes, stages,
-                     stage_pitch, rows_per_chunk, chunks, grid, smem,
-                     combine_cols)
+    return ReducePlan(vec, tile_c, tiles, stage_rows, stage_bytes, stages,
+                      stage_pitch, rows_per_chunk, chunks, grid, smem,
+                      combine_cols)
+
+
+def stats_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
+               blocks_per_sm: int) -> ReducePlan:
+    """The ``bn_stats`` launch for (m, c) of ``itemsize`` bytes: one
+    input, 32 KB ring stages, a grid of the SMs times the blocks an SM
+    holds (at most two), capped at the work."""
+    return _reduce_plan(m, c, itemsize, aligned, sms, blocks_per_sm, 1,
+                        STAGE_BYTES, 0)
+
+
+def bwd_plan(m: int, c: int, itemsize: int, aligned: bool, sms: int,
+             blocks_per_sm: int) -> ReducePlan:
+    """The ``bn_bwd_reduce`` launch for (m, c) x and dy of ``itemsize``
+    bytes: ring stages of 16 KB of each input (four stages: 128 KB, one
+    block an SM), and ``stats_plan``'s grid capped at one block for each
+    ``MIN_BLOCK_BYTES`` of x and dy, so that at small M·C a block's
+    partial rows stay a small share of what it reads
+    (``csrc/bn_bwd_reduce.cu``, point 3)."""
+    return _reduce_plan(m, c, itemsize, aligned, sms, blocks_per_sm, 2,
+                        BWD_STAGE_BYTES, MIN_BLOCK_BYTES)
 
 
 @functools.cache
@@ -175,18 +174,19 @@ def _launcher(name: str):
     fn = getattr(cuda_build.load(name), f"{name}_launch")
     fn.argtypes = {
         "bn_stats": [p, i, ll, i, i, i, i, i, i, i, ll, i, i, i, i, p, p, p],
-        "bn_bwd_reduce": [p, p, p, p, i, ll, i, i, i, i, ll, p, p, p],
+        "bn_bwd_reduce": [p, p, p, p, i, ll, i, i, i, i, i, i, i, ll, i,
+                          i, i, i, p, p, p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _stats_capacity(device: int, is_bf16: bool, vec: int,
-                    smem: int) -> Tuple[int, int]:
-    """(SMs, blocks an SM holds) for the ``bn_stats`` kernel variant with
+def _capacity(name: str, device: int, is_bf16: bool, vec: int,
+              smem: int) -> Tuple[int, int]:
+    """(SMs, blocks an SM holds) for the variant of kernel ``name`` with
     ``smem`` bytes of shared memory, on ``device``."""
-    fn = cuda_build.load("bn_stats").bn_stats_occupancy
+    fn = getattr(cuda_build.load(name), f"{name}_occupancy")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, i, i, p, p]
     fn.restype = ctypes.c_int
@@ -195,9 +195,22 @@ def _stats_capacity(device: int, is_bf16: bool, vec: int,
         err = fn(int(is_bf16), vec, smem, ctypes.addressof(sms),
                  ctypes.addressof(per_sm))
     if err or per_sm.value < 1:
-        raise RuntimeError(f"bn_stats: no block of {smem} bytes of shared "
+        raise RuntimeError(f"{name}: no block of {smem} bytes of shared "
                            f"memory fits an SM (CUDA error {err})")
     return sms.value, per_sm.value
+
+
+def _card_plan(name: str, plan_fn: Callable[..., ReducePlan], x2d: Tensor,
+               aligned: bool) -> ReducePlan:
+    """``plan_fn``'s plan for the CUDA tensor ``x2d``: the SM count and
+    the blocks an SM holds come from the card."""
+    m, c = x2d.shape
+    itemsize = x2d.element_size()
+    first = plan_fn(m, c, itemsize, aligned, 1, 1)
+    sms, per_sm = _capacity(name, x2d.device.index,
+                            x2d.dtype == torch.bfloat16, first.vec,
+                            first.smem)
+    return plan_fn(m, c, itemsize, aligned, sms, per_sm)
 
 
 def _check_2d(name: str, t: Tensor) -> None:
@@ -211,23 +224,23 @@ def _check_2d(name: str, t: Tensor) -> None:
         raise ValueError(f"{name}: empty input {tuple(t.shape)}")
 
 
-def _launch(name: str, inputs: Tuple[Tensor, ...], x2d: Tensor,
-            aligned: bool) -> Tuple[Tensor, Tensor]:
-    """Launch ``name`` on the current stream over the (M, C) rows of
-    ``x2d``; ``inputs`` are the kernel's input pointers in order."""
+def _launch(name: str, pointers: Tuple[Tensor, ...], x2d: Tensor,
+            plan: ReducePlan) -> Tuple[Tensor, Tensor]:
+    """One cooperative launch of ``name`` on the current stream over the
+    (M, C) rows of ``x2d``; ``pointers`` are the kernel's input tensors in
+    the order of its C interface."""
     m, c = x2d.shape
-    cfg = launch_config(m, c, x2d.element_size(), aligned)
-    partial = torch.empty((cfg.chunks, 2 * c), dtype=torch.float32,
+    partial = torch.empty((plan.chunks, 2 * c), dtype=torch.float32,
                           device=x2d.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
-    launch = _launcher(name)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        err = launch(
-            *(t.data_ptr() for t in inputs),
-            int(x2d.dtype == torch.bfloat16), m, c, cfg.vec, cfg.threads_c,
-            cfg.chunks, cfg.rows_per_chunk, partial.data_ptr(),
-            out.data_ptr(), stream)
+        err = _launcher(name)(
+            *(t.data_ptr() for t in pointers),
+            int(x2d.dtype == torch.bfloat16), m, c, plan.vec, plan.tile_c,
+            plan.tiles, plan.stage_rows, plan.stages, plan.stage_pitch,
+            plan.rows_per_chunk, plan.chunks, plan.combine_cols, plan.grid,
+            plan.smem, partial.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return out[0:1], out[1:2]
@@ -245,36 +258,14 @@ def bn_stats(x2d: Tensor) -> Tuple[Tensor, Tensor]:
     if x2d.device.type != "cuda":
         raise ValueError(f"bn_stats: unsupported device {x2d.device}")
     _check_2d("bn_stats", x2d)
-    plan = bn_stats_plan(x2d)
-    m, c = x2d.shape
-    partial = torch.empty((plan.chunks, 2 * c), dtype=torch.float32,
-                          device=x2d.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        err = _launcher("bn_stats")(
-            x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), m, c, plan.vec,
-            plan.tile_c, plan.tiles, plan.stage_rows, plan.stages,
-            plan.stage_pitch, plan.rows_per_chunk, plan.chunks,
-            plan.combine_cols, plan.grid, plan.smem, partial.data_ptr(),
-            out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"bn_stats: kernel launch failed, CUDA error {err}")
+    out = _launch("bn_stats", (x2d,), x2d, bn_stats_plan(x2d))
     bn_stats.launches += 1
-    return out[0:1], out[1:2]
+    return out
 
 
-def bn_stats_plan(x2d: Tensor) -> StatsPlan:
-    """The plan :func:`bn_stats` launches for the CUDA tensor ``x2d``: the
-    SM count and the blocks an SM holds come from the card."""
-    m, c = x2d.shape
-    itemsize = x2d.element_size()
-    aligned = x2d.data_ptr() % 16 == 0
-    first = stats_plan(m, c, itemsize, aligned, 1, 1)
-    sms, per_sm = _stats_capacity(x2d.device.index,
-                                  x2d.dtype == torch.bfloat16, first.vec,
-                                  first.smem)
-    return stats_plan(m, c, itemsize, aligned, sms, per_sm)
+def bn_stats_plan(x2d: Tensor) -> ReducePlan:
+    """The plan :func:`bn_stats` launches for the CUDA tensor ``x2d``."""
+    return _card_plan("bn_stats", stats_plan, x2d, x2d.data_ptr() % 16 == 0)
 
 
 bn_stats.launches = 0
@@ -308,10 +299,17 @@ def bn_bwd_reduce(x2d: Tensor, dy2d: Tensor, mean: Tensor,
                              f"contiguous float32 with {c} values")
     if any(t.device != x2d.device for t in (dy2d, mean, inv)):
         raise ValueError("bn_bwd_reduce: inputs on different devices")
-    aligned = x2d.data_ptr() % 16 == 0 and dy2d.data_ptr() % 16 == 0
-    out = _launch("bn_bwd_reduce", (x2d, dy2d, mean, inv), x2d, aligned)
+    out = _launch("bn_bwd_reduce", (x2d, dy2d, mean, inv), x2d,
+                  bn_bwd_reduce_plan(x2d, dy2d))
     bn_bwd_reduce.launches += 1
     return out
+
+
+def bn_bwd_reduce_plan(x2d: Tensor, dy2d: Tensor) -> ReducePlan:
+    """The plan :func:`bn_bwd_reduce` launches for the CUDA tensors
+    ``x2d`` and ``dy2d``."""
+    aligned = x2d.data_ptr() % 16 == 0 and dy2d.data_ptr() % 16 == 0
+    return _card_plan("bn_bwd_reduce", bwd_plan, x2d, aligned)
 
 
 bn_bwd_reduce.launches = 0

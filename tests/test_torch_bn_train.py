@@ -14,8 +14,10 @@ import torch
 
 from stil_tta_torch.ops.batch_norm import (BatchNorm2d, BNTrain,
                                            bn_bwd_reduce,
-                                           bn_bwd_reduce_plain, bn_functions,
-                                           bn_stats, bn_stats_plain)
+                                           bn_bwd_reduce_plain,
+                                           bn_bwd_reduce_plan, bn_functions,
+                                           bn_stats, bn_stats_plain,
+                                           bwd_plan)
 
 
 @pytest.fixture(autouse=True)
@@ -170,36 +172,95 @@ RESNET50_SHAPES = [
     (32_768, 1024), (32_768, 512), (8_192, 512), (8_192, 2048),
 ]
 ODD_SHAPES = [(300 * 4096, 64), (300 * 16, 2048), (7, 3), (1000, 24)]
+# the same BatchNorms at batch 256 (cardiac), 64 and 32: down to 512 x 2048
+SLICE9_SHAPES = sorted({(m * b // 512, c) for m, c in RESNET50_SHAPES
+                        for b in (256, 64, 32)} - set(RESNET50_SHAPES),
+                       reverse=True)
+
+
+def _check_bwd_on_card(x, dy, mean, inv):
+    """The kernel against its plain version (1e-5 of sum|dy| and of
+    sum|dy x_hat|), one count a call, two launches bitwise equal."""
+    m, c = x.shape
+    before = bn_bwd_reduce.launches
+    s, q = bn_bwd_reduce(x, dy, mean, inv)
+    s2, q2 = bn_bwd_reduce(x, dy, mean, inv)
+    torch.cuda.synchronize()
+    assert bn_bwd_reduce.launches == before + 2
+    assert s.shape == q.shape == (1, c) and s.dtype == torch.float32
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+    ps, pq = bn_bwd_reduce_plain(x, dy, mean, inv)
+    dyf = dy.float()
+    xhat = (x.float() - mean) * inv
+    assert _rel(s.cpu(), ps.cpu(), dyf.abs().sum(0).cpu()) < 1e-5, (m, c)
+    assert _rel(q.cpu(), pq.cpu(),
+                (dyf * xhat).abs().sum(0).cpu()) < 1e-5, (m, c)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_kernel_matches_plain_on_card(dtype):
-    """The kernel against its plain version. Tolerance: 1e-5 of sum|dy|
-    and of sum|dy x_hat|: both sum the same float32 values in different
-    orders (about 250 roundings deep at worst)."""
+    """The kernel against its plain version at every ResNet-50 BN shape at
+    batch 512, 256, 64 and 32, at odd shapes, at M below, at and just past
+    one ring stage, each also on views one element off 16-byte alignment
+    (the direct-load variant); and one call is one CUDA kernel.
+    Tolerance: 1e-5 of sum|dy| and of sum|dy x_hat|: both sum the same
+    float32 values in different orders (a value passes through at most a
+    few hundred roundings: a thread's rows, the block's row lanes, the
+    combine)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for m, c in RESNET50_SHAPES + ODD_SHAPES:
-        x = (torch.randn(m, c, generator=gen, device="cuda") + 0.5).to(dtype)
-        dy = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
-        mean = torch.rand(c, generator=gen, device="cuda")
-        inv = torch.rand(c, generator=gen, device="cuda") + 0.5
-        before = bn_bwd_reduce.launches
-        s, q = bn_bwd_reduce(x, dy, mean, inv)
-        s2, q2 = bn_bwd_reduce(x, dy, mean, inv)
-        torch.cuda.synchronize()
-        assert bn_bwd_reduce.launches == before + 2
-        assert s.shape == q.shape == (1, c) and s.dtype == torch.float32
-        assert torch.equal(s, s2) and torch.equal(q, q2)
-        ps, pq = bn_bwd_reduce_plain(x, dy, mean, inv)
-        dyf = dy.float()
-        xhat = (x.float() - mean) * inv
-        assert _rel(s.cpu(), ps.cpu(), dyf.abs().sum(0).cpu()) < 1e-5, (m, c)
-        assert _rel(q.cpu(), pq.cpu(),
-                    (dyf * xhat).abs().sum(0).cpu()) < 1e-5, (m, c)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+
+    def rand(n, shift=0.0):
+        return (torch.randn(n, generator=gen, device="cuda")
+                + shift).to(dtype)
+
+    def stats(c):
+        return (torch.rand(c, generator=gen, device="cuda"),
+                torch.rand(c, generator=gen, device="cuda") + 0.5)
+
+    shapes = RESNET50_SHAPES + ODD_SHAPES + SLICE9_SHAPES
+    for c in (64, 2048):
+        rows = bwd_plan(1, c, itemsize, True, 1, 1).stage_rows
+        shapes += [(1, c), (rows - 1, c), (rows, c), (rows + 1, c)]
+    for m, c in shapes:
+        x, dy = rand((m, c), 0.5), rand((m, c))
+        assert bn_bwd_reduce_plan(x, dy).vec == 16 // itemsize or c == 3
+        _check_bwd_on_card(x, dy, *stats(c))
+        # contiguous views one element (2 or 4 bytes) off 16-byte
+        # alignment: the direct variant (vec = 1) at the same shape
+        x = rand(m * c + 1, 0.5)[1:].view(m, c)
+        dy = rand(m * c + 1)[1:].view(m, c)
+        assert x.is_contiguous() and x.data_ptr() % 16 == itemsize
+        assert bn_bwd_reduce_plan(x, dy).vec == 1
+        _check_bwd_on_card(x, dy, *stats(c))
         del x, dy
+    # x aligned, dy not: the direct variant too
+    for m, c in ((32_768, 256), (1000, 24)):
+        x = rand((m, c), 0.5)
+        dy = rand(m * c + 1)[1:].view(m, c)
+        assert bn_bwd_reduce_plan(x, dy).vec == 1
+        _check_bwd_on_card(x, dy, *stats(c))
+    # one call is one CUDA kernel (no second pass): three calls profiled,
+    # three kernels, each bn_bwd_reduce's (the profiler's other device
+    # records, copies and its own overhead, are not kernels)
+    from torch.profiler import ProfilerActivity, profile
+    for m, c in ((16_384, 256), (4_096, 2048), (1000, 24)):
+        x, dy = rand((m, c), 0.5), rand((m, c))
+        mean, inv = stats(c)
+        bn_bwd_reduce(x, dy, mean, inv)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                bn_bwd_reduce(x, dy, mean, inv)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "kernel" in e.name.lower()]
+        assert len(kernels) == 3, (m, c, kernels)
+        assert all("bn_bwd_reduce_kernel" in k for k in kernels), kernels
     x = torch.zeros(64, 32, device="cuda", dtype=dtype)
     mean = torch.zeros(32, device="cuda")
     with pytest.raises(ValueError):           # a strided view

@@ -1,4 +1,5 @@
-"""The port's ``bn_stats`` kernel and its BatchNorm module.
+"""The port's ``bn_stats`` kernel, the launch plans of both BN
+reduction kernels, and the BatchNorm module.
 
 This file imports neither JAX nor the JAX package, so its card test also
 runs where only PyTorch is installed:
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from stil_tta_torch.ops.batch_norm import (SMEM_FIXED, SMEM_LIMIT,
-                                           STAGE_BYTES, STAGE_ROWS, THREADS,
-                                           BatchNorm2d, bn_stats,
-                                           bn_stats_plain, bn_stats_plan,
-                                           launch_config, stats_plan)
+from stil_tta_torch.ops.batch_norm import (BWD_STAGE_BYTES,
+                                           MIN_BLOCK_BYTES, SMEM_FIXED,
+                                           SMEM_LIMIT, STAGE_BYTES,
+                                           STAGE_ROWS, THREADS, BatchNorm2d,
+                                           bn_stats, bn_stats_plain,
+                                           bn_stats_plan, bwd_plan,
+                                           stats_plan)
 
 
 @pytest.fixture(autouse=True)
@@ -42,23 +45,6 @@ TAIL_SHAPES = [(300 * 4096, 64), (300 * 16, 2048)]
 SLICE9_SHAPES = sorted({(m * b // 512, c) for m, c in RESNET50_SHAPES
                         for b in (256, 64, 32)} - set(RESNET50_SHAPES),
                        reverse=True)
-
-
-@pytest.mark.parametrize("m,c", RESNET50_SHAPES + TAIL_SHAPES
-                         + SLICE9_SHAPES + [(7, 3), (1, 2048), (1000, 24)])
-@pytest.mark.parametrize("itemsize", [2, 4])
-def test_launch_config_covers_every_row_and_channel(m, c, itemsize):
-    cfg = launch_config(m, c, itemsize, aligned=True)
-    assert cfg.chunks * cfg.rows_per_chunk >= m
-    assert (cfg.chunks - 1) * cfg.rows_per_chunk < m
-    assert cfg.threads_c in (1, 2, 4, 8, 16, 32)
-    assert THREADS % cfg.threads_c == 0
-    assert c % cfg.vec == 0 and cfg.vec in (1, 16 // itemsize)
-    # the channel tiles cover all of C
-    tile_c = cfg.threads_c * cfg.vec
-    assert -(-c // tile_c) * tile_c >= c
-    # an unaligned base pointer falls back to scalar loads
-    assert launch_config(m, c, itemsize, aligned=False).vec == 1
 
 
 def _coverage(plan, m, c):
@@ -124,6 +110,57 @@ def test_stats_plan_covers_every_row_and_channel_once(m, c, itemsize):
     # the shared memory does not depend on the grid
     assert (stats_plan(m, c, itemsize, True, 1, 1).smem
             == stats_plan(m, c, itemsize, True, sms, 1).smem)
+
+
+@pytest.mark.parametrize("m,c", RESNET50_SHAPES + TAIL_SHAPES
+                         + SLICE9_SHAPES
+                         + [(7, 3), (1, 2048), (1000, 24), (1, 64),
+                            (300, 264), (5000, 5000)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_bwd_plan_covers_every_row_and_channel_once(m, c, itemsize):
+    """``bn_bwd_reduce``'s plan: every row and channel once, a grid the
+    card can hold, both inputs' ring stages within the shared memory, and
+    at least MIN_BLOCK_BYTES of x and dy a block, so the partial rows are
+    at most 1/16 of what the blocks read (at 2 KB a 256-wide tile)."""
+    sms = 132
+    read = 2 * m * c * itemsize  # x and dy
+    for aligned, per_sm in ((True, 1), (False, 8)):
+        plan = bwd_plan(m, c, itemsize, aligned, sms, per_sm)
+        rows, cols = _coverage(plan, m, c)
+        assert (rows == 1).all() and (cols == 1).all()
+        assert plan.grid <= sms * per_sm
+        assert plan.smem <= SMEM_LIMIT
+        assert plan.chunks * 2 * c * 4 <= 2**20  # partial rows <= 1 MB
+        assert plan.tile_c % plan.vec == 0 and plan.tile_c <= 256
+        assert plan.tile_c // plan.vec <= THREADS  # threads across a row
+        assert THREADS % plan.combine_cols == 0
+        assert plan.combine_cols & (plan.combine_cols - 1) == 0
+        assert plan.smem >= SMEM_FIXED + 2 * THREADS * plan.vec * 4
+        # the small-M rule: a block reads at least MIN_BLOCK_BYTES
+        assert plan.grid == 1 or plan.grid * MIN_BLOCK_BYTES <= read
+        assert plan.grid == 1 or 16 * plan.chunks * 2 * c * 4 <= read
+        if plan.vec > 1:
+            assert (c * itemsize) % 16 == 0 and plan.vec == 16 // itemsize
+            assert plan.stage_rows * plan.tile_c * itemsize == plan.stage_bytes
+            assert plan.stage_bytes <= BWD_STAGE_BYTES
+            assert 1 <= plan.stage_rows <= STAGE_ROWS  # a TMA box's rows
+            # x's part and dy's part of a stage, each 128-byte aligned
+            part = plan.stage_pitch // 2
+            assert plan.stage_pitch % 256 == 0 and part >= plan.stage_bytes
+            assert plan.smem >= SMEM_FIXED + plan.stages * plan.stage_pitch
+            # 64 KB of input in flight a block, unless the box's 256
+            # rows cap a narrow stage
+            assert (plan.stages * 2 * plan.stage_bytes >= 64 * 1024
+                    or plan.stage_rows == STAGE_ROWS)
+        if not aligned:
+            assert plan.vec == 1 and plan.stages == 0
+        if (m, c) in ((4_096, 512), (16_384, 256)):
+            # where the two-kernel version lost to the library call: the
+            # partials under 1/16 of the input (above), every SM busy
+            assert plan.grid >= sms
+    # the shared memory does not depend on the grid
+    assert (bwd_plan(m, c, itemsize, True, 1, 1).smem
+            == bwd_plan(m, c, itemsize, True, sms, 1).smem)
 
 
 def test_plain_stats_match_numpy():
