@@ -132,6 +132,27 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     differ from the unmasked ones; (e) two bfloat16 steps of
     ``config_cardiac_MultiSimMatch`` with its rotating hard-eval labelled
     view (53 + 53 a step).
+17. The int8 image tower and the encoder warm start: (a) at every
+    distinct convolution shape of ResNet-50 at batch 512 and 256, the
+    integer GEMM's (``torch._int_mm``) s32 sums bitwise equal to a
+    float64 convolution of the same int8 tensors on the card, the bf16
+    and float32 outputs bitwise equal to the plain route's, two calls
+    bitwise equal; (b) each part of the int8 route (quantize, im2col,
+    ``_int_mm``, epilogue) per shape at batch 512, L2 flushed, beside the
+    bf16 cuDNN convolution; (c) the eval forward of the tower at batch
+    512, int8 against bf16: the cosine of the pooled features (> 0.99),
+    the share of agreeing ``out_m`` argmaxes, both times, and a profile
+    with 53 ``aten::_int_mm`` calls, their GEMM kernels and no
+    convolution kernel; (d) ``Predictor(int8=True)`` at batch 512 beside
+    the bf16 one and phase 5, then ``config_dvm_STiL teacher_int8=true``
+    with phase 6's flags (53 x 16 launches of each kernel), steps/s
+    beside phase 6's, peak memory, and a profiled step with 53
+    ``_int_mm`` calls (the teacher's convolutions) and 53
+    ``bn_bwd_reduce`` kernels; (e) a warm-start checkpoint written by the
+    port's converter from seeded random weights, then one epoch with
+    ``finetune_strategy=frozen`` and no warm-up (53 x 8 launches): the
+    encoders' parameters bitwise unchanged, their BN running statistics
+    moved, the fusion and heads moved.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -197,6 +218,9 @@ CARDIAC_DATA = [
 SLICE9_BATCHES = (CARDIAC_BATCH, 64, 32)   # cardiac, Supervised at DVM
 # batch 512 (64 labelled rows), cardiac Supervised (32)
 STEP_LR = 1e-4              # lr_eval, for the side-by-side step
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core rate
+# cuDNN's convolution kernels, none of which may run in an int8 forward
+CONV_KERNEL_MARKS = ("conv", "fprop", "cudnn", "implicit_gemm", "winograd")
 
 
 def log(*args):
@@ -619,11 +643,13 @@ def profile_train_step(state, step, batch, tag: str = "m=1") -> dict:
                   and e.device_type == DeviceType.CPU
                   for k in kernels_under(e)
                   if not any(t in k.name for t in ours)) / 1e3
+    int_mm = sum(e.count for e in prof.key_averages()
+                 if e.key == "aten::_int_mm")
     out = {"host_ms": host_ms, "profiled_host_ms": prof_host_ms,
            "busy_ms": busy, "bn_stats_ms": stats_ms,
            "bn_bwd_reduce_ms": bwd_ms, "bn_elementwise_ms": elem_ms,
            "kernel_launches": n_kernels,
-           "bn_bwd_reduce_kernels": bwd_kernels}
+           "bn_bwd_reduce_kernels": bwd_kernels, "int_mm_calls": int_mm}
     log(f"[profile] train step ({tag}): host clock {host_ms:.3f} ms (median of "
         f"{', '.join(f'{t:.3f}' for t in host)}; profiled "
         f"{prof_host_ms:.3f} ms), device busy {busy:.3f} ms, idle share "
@@ -1272,6 +1298,314 @@ def time_backward(shapes, gen, dev, buf, batch: int) -> tuple:
     return tot_b, bound_by
 
 
+def resnet50_conv_shapes(device, batch: int = BATCH) -> list:
+    """(batch, Cin, H, W, Cout, k, stride, padding) of each of
+    ResNet-50's 53 convolutions at ``batch`` and IMG, in forward order."""
+    from stil_tta_torch.models.resnet import Conv2d, resnet50
+    tower = resnet50(dtype=torch.bfloat16).to(device).eval()
+    seen = []
+    for m in tower.modules():
+        if isinstance(m, Conv2d):
+            m.register_forward_pre_hook(
+                lambda mod, inp: seen.append(
+                    (batch, inp[0].shape[1], inp[0].shape[2],
+                     inp[0].shape[3], mod.out_channels, mod.kernel_size[0],
+                     mod.stride[0], mod.padding[0])))
+    with torch.no_grad():
+        tower(torch.zeros(1, IMG, IMG, 3, device=device))
+    return seen
+
+
+def _conv_inputs(shape, gen, dev):
+    b, cin, h, w, cout, k, _, _ = shape
+    x = torch.randn(b, cin, h, w, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(cout, cin, k, k, generator=gen, device=dev) * math.sqrt(
+        2.0 / (cout * k * k))
+    return x, wt
+
+
+def check_int8_convs(shapes, gen, dev) -> int:
+    """Phase 17 (a): at each conv shape the integer GEMM's s32 sums equal
+    a float64 ``F.conv2d`` of the same int8 tensors on the card bit for
+    bit, the bfloat16 and float32 outputs equal the plain route's, and
+    two calls agree bit for bit; returns the shapes checked."""
+    from stil_tta_torch.ops import quant_conv as qc
+    for shape in shapes:
+        s, p = shape[6:]
+        x, wt = _conv_inputs(shape, gen, dev)
+        x_q, w_q, _, _ = qc.quantize(x, wt)
+        y = qc.int8_conv_card(x_q, w_q, s, p)
+        ok = torch.equal(y, qc.int8_conv_plain(x_q, w_q, s, p))
+        for dt in (torch.bfloat16, torch.float32):
+            got = qc.quant_conv2d(x, wt, s, p, dt)
+            ok = ok and torch.equal(got, qc.quant_conv2d(x, wt, s, p, dt))
+            ok = ok and torch.equal(got, qc.quant_conv2d_plain(x, wt, s, p,
+                                                               dt))
+        log(f"[int8] {shape}: s32 sums, bf16 and f32 outputs bitwise equal "
+            f"to plain and repeatable: {ok}")
+        if not ok:
+            raise SystemExit(f"int8 conv disagrees with plain at {shape}")
+        del x, wt, x_q, w_q, y
+    return len(shapes)
+
+
+def time_int8_convs(shapes, gen, dev, buf) -> dict:
+    """Phase 17 (b): each part of the int8 route (quantize, im2col and
+    the weight matrix, ``torch._int_mm``, the epilogue) and the whole
+    route, beside the bfloat16 cuDNN conv at the same shape, each after
+    an L2 flush; per shape and summed over ``shapes`` (a Counter)."""
+    import torch.nn.functional as F
+    from stil_tta_torch.ops import quant_conv as qc
+    tot = collections.defaultdict(float)
+    for shape, n in shapes.items():
+        b, cin, h, w, cout, k, s, p = shape
+        x, wt = _conv_inputs(shape, gen, dev)
+        x_q, w_q, s_x, s_w = qc.quantize(x, wt)
+        cols, (_, ho, wo) = qc.im2col(x_q, k, k, s, p)
+        wm = qc.weight_matrix(w_q, cols.shape[1])
+        y = torch._int_mm(cols, wm)
+        m = b * ho * wo
+
+        def epilogue(t):
+            return qc.dequantize(t[:m, :cout].reshape(b, ho, wo, cout)
+                                 .permute(0, 3, 1, 2), s_x, s_w,
+                                 torch.bfloat16)
+
+        wb = wt.to(torch.bfloat16)
+        parts = {
+            "quantize": time_ms(lambda a: qc.quantize(*a), (x, wt), buf, 20),
+            "im2col": time_ms(lambda a: (qc.im2col(a, k, k, s, p),
+                                         qc.weight_matrix(w_q, cols.shape[1])),
+                              x_q, buf, 20),
+            "int_mm": time_ms(lambda a: torch._int_mm(*a), (cols, wm), buf,
+                              20),
+            "epilogue": time_ms(epilogue, y, buf, 20),
+            "int8": time_ms(lambda a: qc.quant_conv2d(a, wt, s, p,
+                                                      torch.bfloat16),
+                            x, buf, 20),
+            "bf16": time_ms(lambda a: F.conv2d(a, wb, None, s, p), x, buf,
+                            20)}
+        ops = 2 * m * cout * cin * k * k
+        nbytes = x.numel() * 2 + wt.numel() * 4 + m * cout * 2
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3
+        log(f"[int8-time] {shape} x{n}: quantize {parts['quantize']:.4f} ms"
+            f", im2col {parts['im2col']:.4f} ms, _int_mm "
+            f"{parts['int_mm']:.4f} ms ({ops / parts['int_mm'] / 1e9:.1f} "
+            f"TOP/s), epilogue {parts['epilogue']:.4f} ms; int8 route "
+            f"{parts['int8']:.4f} ms against bf16 cuDNN {parts['bf16']:.4f}"
+            f" ms ({parts['int8'] / parts['bf16']:.2f}x); int8 bound "
+            f"{bound:.4f} ms; GEMM {m} x {cols.shape[1]} x {wm.shape[1]}")
+        for key, t in parts.items():
+            tot[key] += n * t
+        tot["bound"] += n * bound
+        del x, wt, x_q, cols, wm, y
+    log(f"[int8-time] the 53 convs of one forward (batch {BATCH}): "
+        + ", ".join(f"{key} {t:.4f} ms" for key, t in tot.items())
+        + f"; int8 route / bf16 cuDNN {tot['int8'] / tot['bf16']:.2f}x")
+    return dict(tot)
+
+
+def int8_forward_phase(algo, images, tabular) -> None:
+    """Phase 17 (c): the eval forward of ResNet-50 at batch 512, int8
+    against bf16 on the same weights and inputs: the cosine of the
+    pooled features (> 0.99, the JAX package's bound), the share of
+    agreeing argmaxes of ``out_m``, both towers' times, and a profile of
+    the int8 tower: 53 ``aten::_int_mm`` calls, the GEMM kernels they
+    launch by name, and no convolution kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    net = algo.net.eval()
+    tower = net.model.encoder_imaging
+    img = algo.aug_eval(images)
+    with torch.no_grad():
+        pooled = {q: tower(img, int8=q)[-1].float().mean((1, 2))
+                  for q in (False, True)}
+        out_m = {q: net(img, tabular, int8_image=q)["out_m"]
+                 for q in (False, True)}
+        a, b = pooled[False], pooled[True]
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        per = torch.nn.functional.cosine_similarity(a, b, dim=1)
+        agree = float((out_m[False].argmax(1)
+                       == out_m[True].argmax(1)).float().mean())
+        ms = {}
+        for q in (False, True, True, False):
+            tower(img, int8=q)
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                tower(img, int8=q)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            ms.setdefault(q, []).append(sorted(t)[2])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tower(img, int8=True)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    int_mm = sum(e.count for e in events if e.key == "aten::_int_mm")
+    kernels = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] += e.count
+    gemm = {k: n for k, n in kernels.items()
+            if any(t in k.lower() for t in ("gemm", "xmma", "cutlass",
+                                           "splitk", "imma"))}
+    convs = {k: n for k, n in kernels.items()
+             if any(t in k.lower() for t in CONV_KERNEL_MARKS)}
+    log(f"[int8] eval forward of the tower at batch {img.shape[0]}: cosine "
+        f"of the pooled features, int8 against bf16, {cos:.6f} (bound 0.99;"
+        f" per sample min {float(per.min()):.6f}); out_m argmax agreement "
+        f"{agree:.4f}; tower forward int8 {ms[True]} ms, bf16 {ms[False]} "
+        f"ms (medians of 5, in turns)")
+    log(f"[int8] profile of the int8 tower: {int_mm} aten::_int_mm calls; "
+        f"GEMM kernels {sum(gemm.values())}: {json.dumps(gemm)}; "
+        f"convolution kernels {json.dumps(convs)}")
+    split = sum(gemm.values()) - int_mm
+    if split:
+        log(f"[int8] the integer GEMMs launch {split} kernels beside their "
+            f"{int_mm} main ones (split-K or helper kernels)")
+    if int_mm != 53 or convs or not math.isfinite(cos) or cos <= 0.99:
+        raise SystemExit("int8 eval forward: expected 53 _int_mm calls, no "
+                         "convolution kernel and a cosine over 0.99")
+
+
+def int8_phase(dev, single: dict, serve_sps: float) -> dict:
+    """Phase 17 (a)-(d): the int8 convolution at every ResNet-50 shape,
+    its timing, the int8 eval forward, teacher-int8 training and int8
+    serving."""
+    import numpy as np
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.optim import set_learning_rate
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t0 = time.perf_counter()
+    # (a) every distinct conv shape at batch 512 and 256
+    per_forward = collections.Counter(resnet50_conv_shapes(dev))
+    assert sum(per_forward.values()) == 53, per_forward
+    cardiac = collections.Counter(resnet50_conv_shapes(dev, CARDIAC_BATCH))
+    n = check_int8_convs(list(per_forward) + list(cardiac), gen, dev)
+    log(f"[int8] {n} conv shapes ({len(per_forward)} at batch {BATCH}, "
+        f"{len(cardiac)} at {CARDIAC_BATCH}) bitwise equal to plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # (b) per-shape timing at batch 512
+    t0 = time.perf_counter()
+    buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    times = time_int8_convs(per_forward, gen, dev, buf)
+    del buf
+    log(f"[int8-time] {time.perf_counter() - t0:.1f} s")
+    # (c) the eval forward, on phase 4's and 5's test split
+    t_c = time.perf_counter()
+    cfg = load_config("config_dvm_STiL", TEST_OVERRIDES)
+    src = load_sources(cfg)["test"]
+    algo = STiL(cfg, src.field_lengths, device=dev)
+    algo.init_state(0)
+    images = torch.as_tensor(np.asarray(src.images[:BATCH]), device=dev)
+    tabular = torch.as_tensor(np.asarray(src.tabular[:BATCH], np.float32),
+                              device=dev)
+    int8_forward_phase(algo, images, tabular)
+    # (d) serving at batch 512, int8 and bf16 in turns, beside phase 5
+    imgs, tabs = np.asarray(src.images), np.asarray(src.tabular)
+    sps = {}
+    for q in (False, True, True, False):
+        pred = Predictor(algo, batch_size=BATCH, int8=q)
+        pred(imgs[:BATCH], tabs[:BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = pred(imgs, tabs)
+        sps.setdefault(q, []).append(len(imgs) / (time.perf_counter() - t0))
+        if not np.isfinite(probs).all() \
+                or np.abs(probs.sum(1) - 1).max() > 1e-3:
+            raise SystemExit("int8 serving: bad probabilities")
+    log(f"[int8-serve] Predictor batch {BATCH}, {len(imgs)} samples: int8 "
+        f"{sps[True]} samples/s, bf16 {sps[False]} samples/s (in turns); "
+        f"phase 5's bf16 {serve_sps:.1f} samples/s "
+        f"((c) and serving {time.perf_counter() - t_c:.1f} s)")
+    del algo, images, tabular, pred
+    # (d) teacher-int8 training with phase 6's flags, two epochs
+    torch.cuda.reset_peak_memory_stats()
+    cfg, launches, steps = train_full_width(
+        extra=["teacher_int8=true", "logdir=runs/chip_smoke_int8"],
+        tag="int8-train")
+    log(f"[int8-train] {steps:.3f} steps/s against phase 6's "
+        f"{single['steps_per_s']:.3f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    prof = profile_train_step(state, step, batch, tag="teacher int8")
+    log(f"[int8-train] profiled step against phase 8's: host "
+        f"{prof['host_ms']:.3f} vs {single['host_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} vs {single['busy_ms']:.3f} ms, "
+        f"{prof['int_mm_calls']} aten::_int_mm calls")
+    if prof["int_mm_calls"] != 53 or prof["bn_bwd_reduce_kernels"] != 53:
+        raise SystemExit("teacher-int8 step: expected 53 _int_mm calls and "
+                         "53 bn_bwd_reduce kernels")
+    del algo, state, step, batch
+    return {"stil_int8_teacher_train": launches}, times
+
+
+def warm_start_phase(dev) -> dict:
+    """Phase 17 (e): a warm-start checkpoint written by the port's
+    converter from seeded random weights, then one epoch of
+    ``config_dvm_STiL`` with ``finetune_strategy=frozen`` at ``lr_eval``
+    (no warm-up): the encoders' parameters bitwise unchanged, their BN
+    running statistics moved, the fusion and heads moved from their
+    seeded initial values."""
+    import tempfile
+    from stil_tta_torch.algorithms.base import init_weights
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.train.convert import save_encoder_checkpoint
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES)
+        fl = load_sources(cfg)["train_labelled"].field_lengths
+        donor = STiL(cfg, fl, device=dev).net.model
+        init_weights(donor, torch.Generator(device=dev).manual_seed(23))
+        ckpt = save_encoder_checkpoint(donor, Path(tmp) / "pretrained.ckpt")
+        pre = torch.load(ckpt, weights_only=True)["state_dict"]
+        start = STiL(cfg, fl, device=dev)
+        start.init_state(int(cfg.seed or 0))
+        start = {k: v.detach().cpu().clone()
+                 for k, v in start.net.state_dict().items()}
+        # no warm-up: epoch 0 trains at lr_eval (the schedule's warm-up
+        # starts at 0), while the frozen group stays at 0
+        cfg, launches, steps = train_full_width(
+            extra=["test_and_eval=false", "logdir=runs/chip_smoke_frozen",
+                   f"checkpoint={ckpt}", "finetune_strategy=frozen",
+                   "checkpoint_every_n_epochs=1", "warmup_epochs=0"],
+            tag="frozen", epochs=1)
+    net = torch.load(Path(cfg.logdir) / "checkpoint_last",
+                     weights_only=True, map_location="cpu")["net"]
+    enc = {k: v for k, v in net.items()
+           if k.split(".")[1] in ("encoder_imaging", "encoder_tabular")}
+    stats = ("running_mean", "running_var", "num_batches_tracked")
+    frozen = [k for k in enc if not k.endswith(stats)]
+    same = all(torch.equal(enc[k], pre[k[len("model."):]]) for k in frozen)
+    moved_stats = sum(not torch.equal(enc[k], pre[k[len("model."):]])
+                      for k in enc if k.endswith(stats[:2]))
+    n_stats = sum(k.endswith(stats[:2]) for k in enc)
+    heads = ("model.reduce.weight", "model.classifier_multimodal.weight",
+             "model.classifier_imaging.weight", "model.transformer.0.")
+    moved_heads = {h: any(not torch.equal(v, start[k])
+                          for k, v in net.items() if k.startswith(h))
+                   for h in heads}
+    log(f"[frozen] {len(frozen)} encoder parameters bitwise equal to the "
+        f"warm-start file: {same}; {moved_stats} of {n_stats} BN running "
+        f"statistics moved; fusion and heads moved: "
+        f"{json.dumps(moved_heads)}; {steps:.3f} steps/s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same or moved_stats != n_stats or not all(moved_heads.values()):
+        raise SystemExit("frozen warm start: the encoders moved, or the BN "
+                         "statistics, fusion or heads did not")
+    return {"stil_frozen_train": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -1498,7 +1832,7 @@ def main() -> int:
     clock.lap("5 serving")
 
     # ---- 6. training at full width
-    train_cfg, launches, _ = train_full_width()
+    train_cfg, launches, steps6 = train_full_width()
     clock.lap("6 training")
 
     # ---- 7. one train step with the kernels and with the plain pair
@@ -1511,6 +1845,7 @@ def main() -> int:
     state = algo.init_state(0)
     set_learning_rate(state.optimizer, STEP_LR)
     single = profile_train_step(state, step, batch)
+    single["steps_per_s"] = steps6
     if single["bn_bwd_reduce_kernels"] != 53:
         raise SystemExit(f"{single['bn_bwd_reduce_kernels']} bn_bwd_reduce "
                          f"kernels in a train step, 53 expected")
@@ -1586,6 +1921,12 @@ def main() -> int:
     # ---- 16. cardiac, Supervised, TabularEval, missing_tabular
     by_path.update(cardiac_phase(dev, single))
     clock.lap("16 cardiac and baselines")
+
+    # ---- 17. int8 image tower, teacher-int8 training, frozen warm start
+    int8_launches, _ = int8_phase(dev, single, sps)
+    by_path.update(int8_launches)
+    by_path.update(warm_start_phase(dev))
+    clock.lap("17 int8 and warm start")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

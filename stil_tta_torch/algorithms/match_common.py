@@ -13,8 +13,8 @@ The optimizer is a float32 Adam at ``lr_eval`` with ``weight_decay_eval``
 whatever ``adam_mu_dtype`` says: the JAX ``MatchBase`` builds its
 optimizer without the first-moment dtype (``match_common.py:132-134``),
 so the fast profile's bfloat16 moment does not reach these families.
-The encoder freeze of ``finetune_strategy: frozen`` is refused, as it is
-for STiL.
+With ``finetune_strategy: frozen`` and a ``checkpoint`` the encoders'
+updates are zero (``train/optim.py:frozen_parameters``), as for STiL.
 
 The train state is mutable: a step updates it in place and returns it.
 """
@@ -39,7 +39,7 @@ from stil_tta_torch.models.layers import Linear, acc_dtype
 from stil_tta_torch.models.resnet import EMBEDDING_DIM, image_encoder
 from stil_tta_torch.ops.metrics import (AccuracyState, accuracy_compute,
                                         accuracy_init, accuracy_update)
-from stil_tta_torch.train.optim import build_optimizer
+from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
 
@@ -219,11 +219,11 @@ class MatchBase:
         if self.uses_ema():
             ema = copy.deepcopy(ema_source(self.net)).eval().requires_grad_(
                 False)
-        freeze = cfg.finetune_strategy == "frozen" and bool(cfg.checkpoint)
         # no mu_dtype: the JAX MatchBase passes none (match_common.py:132)
-        optimizer = build_optimizer(
+        optimizer = optim.build_optimizer(
             self.net.parameters(), float(cfg.lr_eval),
-            float(cfg.weight_decay_eval or 0.0), freeze=freeze)
+            float(cfg.weight_decay_eval or 0.0),
+            frozen=optim.frozen_parameters(cfg, self.net))
         adt = acc_dtype(self.dtype)
         state = MatchState(
             net=self.net, ema=ema, optimizer=optimizer, generator=gen,

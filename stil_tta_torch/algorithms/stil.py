@@ -45,7 +45,6 @@ from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_update, auroc_compute,
                                         auroc_init, auroc_update)
 from stil_tta_torch.train import optim
-from stil_tta_torch.train.optim import build_optimizer
 
 Tensor = torch.Tensor
 
@@ -74,9 +73,13 @@ class STiLNet(nn.Module):
                  embedding_dropout: float = 0.0, drop_rate: float = 0.0,
                  tabular_encoder: str = "transformer",
                  saint_ff_dropout: float = 0.8,
+                 teacher_int8: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         hid = multimodal_embedding_dim
+        # the int8 image tower in the teacher's forward only
+        # (``teacher_int8``)
+        self.teacher_int8 = teacher_int8
         self.model = DisCoBackbone(
             encoder, field_lengths, num_classes,
             tabular_embedding_dim=tabular_embedding_dim,
@@ -101,8 +104,12 @@ class STiLNet(nn.Module):
         self.CLUB_tabular = CLUBMean(hid, hid)
 
     def forward(self, image: Tensor, tabular: Tensor,
-                missing_mask: Optional[Tensor] = None) -> Dict[str, Tensor]:
-        out = self.model(image, tabular, missing_mask)
+                missing_mask: Optional[Tensor] = None,
+                int8_image: bool = False) -> Dict[str, Tensor]:
+        """``int8_image``: the int8 image tower in eval mode (int8
+        serving); train mode ignores it."""
+        out = self.model(image, tabular, missing_mask,
+                         int8_image=int8_image and not self.training)
         feat_m_raw = torch.cat(
             [out["x_si_enhance"], out["x_c"], out["x_st_enhance"]], dim=1)
         out["feat_m"] = _l2norm(self.projector_multimodal(feat_m_raw))
@@ -114,10 +121,11 @@ class STiLNet(nn.Module):
 
     def teacher(self, ema: DisCoBackbone, image: Tensor, tabular: Tensor,
                 missing_mask: Optional[Tensor] = None) -> Dict[str, Tensor]:
-        """EMA forward: the EMA backbone ``ema`` (in eval mode) and this
-        net's multimodal projector: the reference's EMA copies only the
-        backbone (``STiLModel.py:88, 252-254``)."""
-        out = ema(image, tabular, missing_mask)
+        """EMA forward: the EMA backbone ``ema`` (in eval mode, its image
+        tower int8 with ``teacher_int8``) and this net's multimodal
+        projector, exact: the reference's EMA copies only the backbone
+        (``STiLModel.py:88, 252-254``)."""
+        out = ema(image, tabular, missing_mask, int8_image=self.teacher_int8)
         feat_m_raw = torch.cat(
             [out["x_si_enhance"], out["x_c"], out["x_st_enhance"]], dim=1)
         return {"out_m": out["out_m"], "out_i": out["out_i"],
@@ -167,8 +175,9 @@ class STiL:
     use_ema, eman, ema_momentum, DA, augmentation_rate, corruption_rate,
     crop_scale_lower, lr_eval, weight_decay_eval, finetune_strategy,
     adam_mu_dtype, micro_batches and strict_prototypes; for STiL_SAINT
-    saint_ff_dropout (None reads as the reference's 0.8). ``teacher_int8``
-    is refused: the int8 teacher is not ported."""
+    saint_ff_dropout (None reads as the reference's 0.8); teacher_int8
+    (the EMA teacher's image tower int8, ``STiLNet.teacher``; refused
+    with ``ValueError`` for a ViT encoder, as in JAX)."""
 
     name = "STiL"
     tabular_encoder = "transformer"
@@ -176,10 +185,10 @@ class STiL:
 
     def __init__(self, cfg, field_lengths: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        if bool(cfg.teacher_int8):
-            raise NotImplementedError(
-                "teacher_int8 (the int8 EMA teacher) is not ported to "
-                "stil_tta_torch yet (ROADMAP.md)")
+        if bool(cfg.teacher_int8) and str(cfg.model).startswith("vit"):
+            # the int8 convs are ResNet-only (``stil.py:195-199``)
+            raise ValueError("teacher_int8 requires a ResNet image "
+                             "encoder (ViT unsupported)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
@@ -198,7 +207,7 @@ class STiL:
             tabular_encoder=self.tabular_encoder,
             saint_ff_dropout=(0.8 if cfg.saint_ff_dropout is None
                               else float(cfg.saint_ff_dropout)),
-            dtype=dtype)
+            teacher_int8=bool(cfg.teacher_int8), dtype=dtype)
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
 
@@ -215,10 +224,10 @@ class STiL:
         ema = None
         if bool(cfg.use_ema):
             ema = copy.deepcopy(self.net.model).eval().requires_grad_(False)
-        freeze = cfg.finetune_strategy == "frozen" and bool(cfg.checkpoint)
-        optimizer = build_optimizer(
+        optimizer = optim.build_optimizer(
             self.net.parameters(), float(cfg.lr_eval),
-            float(cfg.weight_decay_eval or 0.0), freeze=freeze,
+            float(cfg.weight_decay_eval or 0.0),
+            frozen=optim.frozen_parameters(cfg, self.net),
             mu_dtype=cfg.adam_mu_dtype)
         c, pdim = self.num_classes, int(cfg.projection_dim)
         adt, dev = acc_dtype(self.dtype), self.device

@@ -92,9 +92,12 @@ class DisCoBackbone(nn.Module):
         self.head_dtype = head_t
 
     def encode(self, image: Tensor, tabular: Tensor,
-               missing_mask: Optional[Tensor] = None):
-        """Disentangled features (``STiLModel_backbone.py:118-132``)."""
-        x_i = self.encoder_imaging(image)[-1]   # (B, H, W, C) view
+               missing_mask: Optional[Tensor] = None,
+               int8_image: bool = False):
+        """Disentangled features (``STiLModel_backbone.py:118-132``).
+        ``int8_image``: the image tower's int8 eval forward; the tabular
+        encoder, projections and fusion stay exact."""
+        x_i = self.encoder_imaging(image, int8=int8_image)[-1]  # NHWC view
         b, h, w, c = x_i.shape
         x_i = x_i.reshape(b, h * w, c)          # h-major tokens, as JAX
         # SAINT takes no missing-column mask
@@ -111,10 +114,12 @@ class DisCoBackbone(nn.Module):
         return x_si.mean(1), x_st.mean(1), x_c.mean(1)
 
     def forward(self, image: Tensor, tabular: Tensor,
-                missing_mask: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                missing_mask: Optional[Tensor] = None,
+                int8_image: bool = False) -> Dict[str, Tensor]:
         """The reference's ``forward_all`` outputs
         (``STiLModel_backbone.py:150-156``) as a dict, ``OUTPUT_KEYS``."""
-        x_si, x_ai, x_st, x_at = self.encode(image, tabular, missing_mask)
+        x_si, x_ai, x_st, x_at = self.encode(image, tabular, missing_mask,
+                                             int8_image)
         x_si_pool, x_st_pool = x_si.mean(1), x_st.mean(1)
         x_si_enh, x_st_enh, x_c = self.fuse(x_si, x_ai, x_st, x_at)
         f = lambda t: t.to(self.head_dtype)  # noqa: E731

@@ -1,11 +1,22 @@
 """ResNet image tower (the part of ``stil_tta_tpu/models/resnet.py`` the
-test-time path uses).
+port uses).
 
 torchvision-style ResNet: conv1 7x7/2, BN, ReLU, maxpool 3x3/2, four stages
 of :class:`BasicBlock` / :class:`Bottleneck` (v1.5: stride on the 3x3
 conv). The JAX package's space-to-depth stem is exact math for the 7x7/s2/p3
 conv, so a plain conv ports it; its TPU layout lanes (channel padding,
-1x1-as-dot, int8, remat, fp8 residuals, custom maxpool) are not ported.
+1x1-as-dot, remat, fp8 residuals, custom maxpool) are not ported.
+
+``forward(x, int8=True)`` in eval mode is the int8 forward (JAX
+``QuantConv`` and the ``int8`` flags): every convolution, the stem and
+the downsamples included, runs ``ops/quant_conv.py:quant_conv2d``; BN,
+ReLU, the residual add, pooling and the head stay exact. Without channel
+padding (not ported, set by no config) the JAX package quantizes every
+conv too. Its int8 stem quantizes the space-to-depth form; the direct
+7x7 conv on the same int8 values gives the same sums (the scattered
+kernel keeps each output channel's max|w|, the re-laid input keeps
+max|x|, and the sums have the same terms). Train mode ignores the flag,
+as in JAX.
 
 Inputs are NHWC (the JAX layout). Inside, tensors are NCHW in
 ``torch.channels_last`` memory, so every BatchNorm input is a row-major
@@ -23,25 +34,38 @@ import torch.nn.functional as F
 from torch import nn
 
 from stil_tta_torch.ops.batch_norm import BatchNorm2d
+from stil_tta_torch.ops.quant_conv import quant_conv2d
 
 EMBEDDING_DIM = {"resnet18": 512, "resnet50": 2048}
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv whose float32 weight is cast to the input's dtype."""
+    """Bias-free conv whose float32 weight is cast to the input's dtype;
+    ``int8=True`` quantizes it (``QuantConv``: the same ``weight``, out
+    in the input's dtype)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
                          bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        if int8:
+            return quant_conv2d(x, self.weight, self.stride[0],
+                                self.padding[0], x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
     # torch keys downsample.0 (conv) / downsample.1 (BN)
     return nn.Sequential(Conv2d(cin, cout, 1, stride), BatchNorm2d(cout))
+
+
+def _identity(block: nn.Module, x: torch.Tensor, q: bool) -> torch.Tensor:
+    if block.downsample is None:
+        return x
+    conv, bn = block.downsample
+    return bn(conv(x, q))
 
 
 class BasicBlock(nn.Module):
@@ -59,11 +83,11 @@ class BasicBlock(nn.Module):
         self.downsample = (_downsample(inplanes, planes, stride)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        q = int8 and not self.training
+        out = F.relu(self.bn1(self.conv1(x, q)))
+        out = self.bn2(self.conv2(out, q))
+        return F.relu(out + _identity(self, x, q))
 
 
 class Bottleneck(nn.Module):
@@ -84,18 +108,19 @@ class Bottleneck(nn.Module):
         self.downsample = (_downsample(inplanes, out, stride)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+    def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        q = int8 and not self.training
+        out = F.relu(self.bn1(self.conv1(x, q)))
+        out = F.relu(self.bn2(self.conv2(out, q)))
+        out = self.bn3(self.conv3(out, q))
+        return F.relu(out + _identity(self, x, q))
 
 
 class ResNet(nn.Module):
-    """``forward(x)`` with x (B, H, W, 3) float returns ``[x0..x4]`` NHWC
-    feature maps when ``return_all_feature_maps`` (``resnets.py:254-260``)
-    else ``[pooled]`` (B, C)."""
+    """``forward(x, int8=False)`` with x (B, H, W, 3) float returns
+    ``[x0..x4]`` NHWC feature maps when ``return_all_feature_maps``
+    (``resnets.py:254-260``) else ``[pooled]`` (B, C); ``int8`` is the
+    int8 eval forward, ignored in train mode."""
 
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
                  return_all_feature_maps: bool = False,
@@ -118,14 +143,17 @@ class ResNet(nn.Module):
                 inplanes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*mods))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                int8: bool = False) -> List[torch.Tensor]:
+        q = int8 and not self.training
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x, q)))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = [x]
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+            for block in stage:
+                x = block(x, q)
             feats.append(x)
         if self.return_all_feature_maps:
             return [f.permute(0, 2, 3, 1) for f in feats]

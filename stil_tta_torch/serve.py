@@ -8,13 +8,18 @@ native-format split into a CSV:
     python -m stil_tta_torch.serve --config-name config_dvm_STiL \
         --checkpoint model.ckpt --source data/test --out predictions.csv
 
-Serves every algorithm of the registry. The JAX package's data-parallel
-and int8 serving options are still to port (ROADMAP.md).
+Serves every algorithm of the registry. ``--int8`` (``Predictor(int8=
+True)``) runs the image tower's convolutions in int8
+(``ops/quant_conv.py``) for the nets whose forward takes ``int8_image``
+(STiL's); the activation scale is per batch, so a sample's int8 result
+depends on its batch mates and on ``--batch-size``. The JAX package's
+data-parallel serving is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,29 +34,47 @@ class Predictor:
     batch is padded to ``batch_size`` by repeating its first row, as the
     JAX package's ``Predictor`` pads it: STiL_SAINT's intersample
     attention mixes the rows of a batch, so a prediction depends on its
-    batch mates, and the padding is part of the result."""
+    batch mates, and the padding is part of the result; so does int8's
+    per-batch activation scale.
 
-    def __init__(self, algo, batch_size: int = 256):
+    ``int8``: the int8 image tower (``stil_tta_tpu/serve.py:41-80``),
+    refused with ``ValueError`` for a net whose forward takes no
+    ``int8_image`` and for a ViT encoder, as the JAX package refuses
+    them."""
+
+    def __init__(self, algo, batch_size: int = 256, int8: bool = False):
         self.algo = algo
         self.batch_size = batch_size
+        self.kw = {}
+        if int8:
+            net = algo.net
+            if "int8_image" not in inspect.signature(
+                    type(net).forward).parameters:
+                raise ValueError(
+                    f"int8 serving unsupported for {type(net).__name__}")
+            if str(algo.cfg.model).startswith("vit"):
+                raise ValueError("int8 serving unsupported for ViT "
+                                 "image encoders")
+            self.kw["int8_image"] = True
 
     @classmethod
     def from_checkpoint(cls, cfg, checkpoint: str,
                         field_lengths: Optional[Sequence[int]] = None,
                         batch_size: int = 256, device="cuda",
-                        dtype: torch.dtype = torch.bfloat16) -> "Predictor":
+                        dtype: torch.dtype = torch.bfloat16,
+                        int8: bool = False) -> "Predictor":
         """A predictor with the weights of a reference-layout ``.ckpt``."""
         cfg.checkpoint = checkpoint
         algo = build_algo(cfg, list(field_lengths or cfg.field_lengths),
                           device, dtype)
-        return cls(algo, batch_size)
+        return cls(algo, batch_size, int8=int8)
 
     @torch.no_grad()
     def predict(self, images: torch.Tensor,
                 tabular: torch.Tensor) -> torch.Tensor:
         """One batch already on the card -> (B, C) float32 probabilities."""
         net = self.algo.net.eval()
-        out = net(self.algo.aug_eval(images), tabular)
+        out = net(self.algo.aug_eval(images), tabular, **self.kw)
         # STiL's nets return a dict of heads, the comparison families'
         # a tuple led by the multimodal head's logits, TabularNet the
         # logits alone (``serve.py:82-92``)
@@ -89,6 +112,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="predictions.csv")
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 image-tower convs (an inference numerics "
+                         "change; STiL's nets only)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
@@ -98,7 +124,7 @@ def main(argv=None) -> int:
     cfg.num_classes = cfg.num_classes or src.num_classes
     predictor = Predictor.from_checkpoint(
         cfg, args.checkpoint, src.field_lengths, args.batch_size,
-        device=args.device)
+        device=args.device, int8=args.int8)
     probs = predictor(np.asarray(src.images), src.tabular)
     pred = probs.argmax(1)
     acc = float((pred == src.labels).mean())

@@ -11,6 +11,9 @@ them with ``load_state_dict(strict=True)``, as a reference checkpoint
 (``tools/export_torch_checkpoint.py``) does. ``load_saint_state_dict``
 loads a somepago/saint-layout ``.pth`` (the reference's
 ``checkpoint_SAINT``) into the port's SAINT encoder.
+``load_pretrained_encoders`` is the port's copy of the JAX package's
+warm start of the encoders from a pretraining checkpoint, and
+``save_encoder_checkpoint`` writes such a checkpoint from a backbone.
 
 Value transforms: conv (kh, kw, I, O) -> (O, I, kh, kw); dense (I, O) ->
 (O, I); BN/LN scale -> weight; ``batch_stats`` mean/var ->
@@ -20,10 +23,13 @@ Value transforms: conv (kh, kw, I, O) -> (O, I, kh, kw); dense (I, O) ->
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from stil_tta_torch.train.optim import ENCODERS
 
 
 def _resnet_torch_name(parts) -> str:
@@ -254,6 +260,73 @@ def load_saint_state_dict(encoder: torch.nn.Module,
     encoder.load_state_dict({k: torch.as_tensor(np.asarray(state_dict[k]))
                              for k in keys}, strict=True)
     return len(keys)
+
+
+def save_encoder_checkpoint(backbone: torch.nn.Module, path) -> Path:
+    """Write the ``encoder_imaging`` and ``encoder_tabular`` of
+    ``backbone`` as a pretraining checkpoint in the TIP layout
+    (``{"state_dict": {"encoder_imaging.*": ..., "encoder_tabular.*":
+    ...}}``), the file that :func:`load_pretrained_encoders` reads;
+    returns its path."""
+    sd = {f"{sub}.{k}": v.detach().cpu().clone()
+          for sub in ENCODERS
+          for k, v in getattr(backbone, sub).state_dict().items()}
+    path = Path(path)
+    torch.save({"state_dict": sd}, path)
+    return path
+
+
+def load_pretrained_encoders(net: torch.nn.Module, ckpt_path) -> None:
+    """The warm start of ``stil_tta_tpu/train/convert.py:206-241``: fill
+    the backbone's (``net.model``) image and tabular encoders from a torch
+    checkpoint by key prefix, leaving out ``projection_head`` and
+    ``prototypes`` keys. Every parameter and BN running statistic of the
+    two encoders must be in the file (``KeyError`` otherwise, a shape
+    mismatch is a ``ValueError``); other keys are left over, as under
+    ``strict=False``. The BN counters ``num_batches_tracked`` are not
+    read (the JAX state has none). Prints ``Loaded n/N torch keys for
+    <prefix>`` for each encoder, N the file's keys under the prefix and
+    n those used or not counted as left over, as the JAX package does.
+    Only the student is filled: an EMA teacher keeps its weights.
+    ``ValueError`` where the JAX package fails: a net with no backbone
+    (``ImagingNet``, ``TabularNet``: no ``backbone`` subtree) and a SAINT
+    tabular encoder (its generic key walk looks for keys that no SAINT
+    checkpoint has; ``checkpoint_SAINT`` loads SAINT weights)."""
+    from stil_tta_torch.models.saint import SAINTEncoder
+    backbone = getattr(net, "model", None)
+    if backbone is None or not all(isinstance(getattr(backbone, s, None),
+                                              torch.nn.Module)
+                                   for s in ENCODERS):
+        raise ValueError(
+            f"a .ckpt/.pth warm start fills net.model.encoder_imaging and "
+            f".encoder_tabular; {type(net).__name__} has no such backbone")
+    if isinstance(backbone.encoder_tabular, SAINTEncoder):
+        raise ValueError("a .ckpt/.pth warm start of a SAINT tabular "
+                         "encoder is not supported; use checkpoint_SAINT")
+    sd = {k: v for k, v in load_torch_state_dict(ckpt_path).items()
+          if "projection_head" not in k and "prototypes" not in k}
+    for sub in ENCODERS:
+        prefix = sub + "."
+        part = {k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix)}
+        module = getattr(backbone, sub)
+        new = {}
+        for key, own in module.state_dict().items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            if key not in part:
+                raise KeyError(f"torch checkpoint missing key: {prefix}{key}")
+            if part[key].shape != own.shape:
+                raise ValueError(
+                    f"shape mismatch at {prefix}{key}: torch "
+                    f"{tuple(part[key].shape)} vs {tuple(own.shape)}")
+            new[key] = part[key]
+        module.load_state_dict(new, strict=False)
+        leftovers = [k for k in part if k not in new
+                     and "num_batches_tracked" not in k
+                     and not saint_inert_key(k)]
+        print(f"Loaded {len(part) - len(leftovers)}/{len(part)} torch keys "
+              f"for {prefix}")
 
 
 def _is_position(v) -> bool:

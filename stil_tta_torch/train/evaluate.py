@@ -11,11 +11,14 @@ so a resumed run replays the uninterrupted one. Each epoch validates,
 keeps the best checkpoint and stops early as the reference does; with
 ``test_and_eval`` the best checkpoint is then scored on the test split.
 ``checkpoint_SAINT`` loads a somepago/saint-layout ``.pth`` into the
-student's SAINT tabular encoder (STiL_SAINT, CoTrain_Pseudo_SAINT). Not
-ported (each raises ``NotImplementedError``): ``host_stream``, a
-``.ckpt``/``.pth`` warm start, the encoder freeze of
-``stil_tta_torch.train.optim``, and STiL's ``teacher_int8`` (the other
-families accept and ignore it, as the JAX package does).
+student's SAINT tabular encoder (STiL_SAINT, CoTrain_Pseudo_SAINT). A
+``checkpoint`` ending in ``.ckpt``/``.pth`` without ``resume_training``
+is a warm start of the student's encoders
+(``train/convert.py:load_pretrained_encoders``), with
+``finetune_strategy: frozen`` their updates are zero
+(``train/optim.py``); STiL's ``teacher_int8`` runs the EMA teacher's
+image tower in int8 (the other families ignore it, as the JAX package
+does). Not ported: ``host_stream`` (``NotImplementedError``).
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -165,19 +168,12 @@ def run_validation(eval_step, cache: dict, batch_size: int,
 def _refuse_unported(cfg) -> None:
     """Raise for the training options the port does not have yet, for
     every algorithm; an algorithm's own refusals (STiL's
-    ``teacher_int8``) are its constructor's."""
+    ``teacher_int8`` on a ViT) are its constructor's."""
     from stil_tta_torch.algorithms.registry import get_algorithm
     get_algorithm(cfg.algorithm_name)
-    unported = {
-        "host_stream": bool(cfg.host_stream),
-        "a .ckpt/.pth warm start": (
-            not cfg.resume_training
-            and str(cfg.checkpoint or "").endswith((".ckpt", ".pth"))),
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to stil_tta_torch yet (ROADMAP.md)")
+    if cfg.host_stream:
+        raise NotImplementedError(
+            "host_stream is not ported to stil_tta_torch yet (ROADMAP.md)")
     if float(cfg.val_check_interval or 1.0) < 1.0:
         raise ValueError(
             "val_check_interval < 1.0 (fractional mid-epoch validation) "
@@ -232,6 +228,12 @@ def evaluate(cfg, logdir: Optional[Path] = None,
         ckpt = Path(cfg.checkpoint)
         restore_checkpoint(ckpt.parent, state, name=ckpt.name)
         print(f"Resumed training state from {ckpt} at step {state.step}")
+    elif cfg.checkpoint and str(cfg.checkpoint).endswith((".ckpt", ".pth")):
+        # pretrained encoders into the student only: the EMA teacher that
+        # init_state copied keeps its seeded weights, as in the JAX
+        # package (``train/evaluate.py:190-206``)
+        from stil_tta_torch.train.convert import load_pretrained_encoders
+        load_pretrained_encoders(state.net, str(cfg.checkpoint))
     if cfg.checkpoint_SAINT:
         # SAINT weights from their own .pth into the student only, as the
         # JAX package does after its init copied the EMA teacher

@@ -11,12 +11,19 @@ and follows optax's ``scale_by_adam(mu_dtype=...)`` operation for
 operation. The learning rate is set per epoch on the param groups
 (:func:`set_learning_rate`); the schedules are host-side functions of the
 epoch, copied from the JAX package.
+
+The encoder freeze of ``finetune_strategy: frozen`` (JAX
+``optax.masked(set_to_zero, encoder_freeze_fn)`` after weight decay, Adam
+and the learning rate) is a second param group, ``frozen``, at learning
+rate 0 that the schedules leave alone: its parameters never move, their
+gradients still pass through weight decay into the Adam moments, and the
+moments, like JAX's, go into checkpoints.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -96,17 +103,36 @@ class Adam(torch.optim.Optimizer):
         return None
 
 
+ENCODERS = ("encoder_imaging", "encoder_tabular")
+
+
+def frozen_parameters(cfg, net: torch.nn.Module
+                      ) -> List[torch.nn.Parameter]:
+    """With ``finetune_strategy: frozen`` and a ``checkpoint``
+    (``algorithms/stil.py:218-220``, ``match_common.py:129-131``), the
+    parameters under a module named ``encoder_imaging`` or
+    ``encoder_tabular`` anywhere in ``net`` (JAX ``encoder_freeze_fn``);
+    else none."""
+    if cfg.finetune_strategy != "frozen" or not cfg.checkpoint:
+        return []
+    return [p for name, p in net.named_parameters()
+            if any(part in ENCODERS for part in name.split("."))]
+
+
 def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
-                    weight_decay: float = 0.0, freeze: bool = False,
+                    weight_decay: float = 0.0,
+                    frozen: Iterable[torch.nn.Parameter] = (),
                     mu_dtype=None) -> torch.optim.Optimizer:
     """torch Adam with the JAX package's defaults, or :class:`Adam` when
     ``mu_dtype`` (``adam_mu_dtype``) names a storage dtype of the first
-    moment. The encoder freeze of ``finetune_strategy: frozen`` is not
-    ported."""
-    if freeze:
-        raise NotImplementedError(
-            "finetune_strategy=frozen with a warm-start checkpoint is not "
-            "ported to stil_tta_torch yet (ROADMAP.md)")
+    moment. The parameters of ``params`` that are in ``frozen`` go into a
+    second group at learning rate 0 marked ``frozen``."""
+    params = list(params)
+    skip = {id(p) for p in frozen}
+    if skip:
+        params = [{"params": [p for p in params if id(p) not in skip]},
+                  {"params": [p for p in params if id(p) in skip],
+                   "lr": 0.0, "frozen": True}]
     if mu_dtype is not None:
         dtype = getattr(torch, str(mu_dtype)) if isinstance(mu_dtype, str) \
             else mu_dtype
@@ -128,8 +154,10 @@ def step(opt: torch.optim.Optimizer) -> None:
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """``lr`` on every param group but the ``frozen`` one."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if not group.get("frozen"):
+            group["lr"] = lr
 
 
 def cosine_lr(base_lr: float, epoch: int, t_max: int,

@@ -503,14 +503,25 @@ def test_bfloat16_adam_moment_does_not_reach_cotrain():
 
 
 def test_teacher_int8_is_ignored_by_cotrain_and_refused_by_stil():
+    """Co-Training accepts and ignores ``teacher_int8``, on both sides;
+    STiL takes it (its EMA teacher's image tower runs int8,
+    ``tests/test_torch_int8.py``) and refuses it for a ViT encoder with
+    JAX's ``ValueError``, before the encoder is built."""
     cfg = _cfg(load_config, "teacher_int8=true")
     algo = get_algorithm("CoTrain_Pseudo")(cfg, FL, device="cpu")
     state = algo.init_state(0)
     assert state.ema is not None
+    assert not hasattr(algo.net, "teacher_int8")
     jcotrain.CoTrain(_cfg(jax_load_config, "teacher_int8=true"), FL)
     stil = load_config("config_dvm_STiL", ["teacher_int8=true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        STiL(stil, FL, device="cpu")
+    assert STiL(stil, FL, device="cpu").net.teacher_int8
+    from stil_tta_tpu.algorithms.stil import STiL as JaxSTiL
+    for loader, cls, kw in ((load_config, STiL, {"device": "cpu"}),
+                            (jax_load_config, JaxSTiL, {})):
+        vit = loader("config_dvm_STiL", ["teacher_int8=true"])
+        vit.model = "vit_base"
+        with pytest.raises(ValueError, match="ViT unsupported"):
+            cls(vit, FL, **kw)
 
 
 # ---- exact resume through the CLI -------------------------------------------

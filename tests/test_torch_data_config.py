@@ -292,7 +292,8 @@ def test_port_imports_no_jax_jax_package_or_triton():
     # tools.bench_conv_probe), slice 6's (algorithms.registry,
     # models.saint), slice 7's (algorithms.match_common,
     # algorithms.mmatch, algorithms.cotrain) and slice 8's
-    # (algorithms.simmatch, algorithms.comatch, algorithms.freematch)
+    # (algorithms.simmatch, algorithms.comatch, algorithms.freematch);
+    # slice 11's ops.quant_conv and tools.bn_repeat
     assert int(n) >= 50 and bad.strip() == "[]", out.stdout
     assert {"stil_tta_torch.algorithms.registry",
             "stil_tta_torch.models.saint",
@@ -301,4 +302,6 @@ def test_port_imports_no_jax_jax_package_or_triton():
             "stil_tta_torch.algorithms.cotrain",
             "stil_tta_torch.algorithms.simmatch",
             "stil_tta_torch.algorithms.comatch",
-            "stil_tta_torch.algorithms.freematch"} <= set(names.split())
+            "stil_tta_torch.algorithms.freematch",
+            "stil_tta_torch.ops.quant_conv",
+            "stil_tta_torch.tools.bn_repeat"} <= set(names.split())

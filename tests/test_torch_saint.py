@@ -337,8 +337,13 @@ def test_stil_saint_config_composes_like_jax():
 
 @pytest.mark.parametrize("entry", ["test", "predictor"])
 def test_teacher_int8_is_refused(entry, tmp_path):
+    """STiL_SAINT takes ``teacher_int8`` with a ResNet (STiL's int8
+    teacher, ``tests/test_torch_int8.py``); both entry points refuse it
+    for a ViT encoder with JAX's ``ValueError``, before any weights
+    load."""
     cfg = _cfg(load_config, teacher_int8=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    cfg.model = "vit_base"
+    with pytest.raises(ValueError, match="ViT unsupported"):
         if entry == "test":
             run_test(cfg, logdir=tmp_path, device="cpu")
         else:

@@ -179,11 +179,17 @@ def test_optimizer_matches_optax_over_three_steps(weight_decay):
 
 
 def test_optimizer_refuses_unported_options():
-    """The encoder freeze is still refused; a bfloat16 first moment
-    (``adam_mu_dtype``) is ported and builds the port's own Adam."""
-    p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_optimizer(p, 1e-3, freeze=True)
+    """Both options are ported: the encoder freeze builds a second param
+    group at learning rate 0 (``tests/test_torch_warm_start.py``), a
+    bfloat16 first moment (``adam_mu_dtype``) the port's own Adam; a
+    first-moment dtype torch does not have raises."""
+    p = [torch.nn.Parameter(torch.zeros(2)), torch.nn.Parameter(
+        torch.zeros(3))]
+    opt = optim.build_optimizer(p, 1e-3, frozen=p[1:])
+    assert [len(g["params"]) for g in opt.param_groups] == [1, 1]
+    assert opt.param_groups[1]["lr"] == 0.0
+    with pytest.raises(AttributeError):
+        optim.build_optimizer(p, 1e-3, mu_dtype="bfloat17")
     opt = optim.build_optimizer(p, 1e-3, mu_dtype="bfloat16")
     assert isinstance(opt, optim.Adam) and opt.mu_dtype == torch.bfloat16
 

@@ -200,13 +200,20 @@ def test_cli_resume_is_bitwise_exact_in_the_fast_profile(tmp_path):
 ])
 def test_unported_training_options_raise(override, tmp_path):
     """Options still to port raise ``NotImplementedError`` naming
-    ROADMAP.md (``teacher_int8`` is STiL's refusal, the wider ResNet the
-    image encoder's); a name that no registry knows (``Tent``) raises
-    ``ValueError``, as the JAX registry does."""
+    ROADMAP.md (``host_stream``; the wider ResNet is the image encoder's
+    refusal); a name that no registry knows (``Tent``) raises
+    ``ValueError``, as the JAX registry does. ``teacher_int8`` and the
+    ``.ckpt`` warm start are ported: STiL refuses the int8 teacher only
+    for a ViT encoder (``ValueError``, as JAX), and the warm start reads
+    the file (here missing: ``FileNotFoundError``)."""
     cfg = load_config("config_dvm_STiL", OVERRIDES + [
         override, f"logdir={tmp_path}"])
-    error, match = ((ValueError, "Algorithm name not found")
-                    if override == "algorithm_name=Tent"
-                    else (NotImplementedError, "ROADMAP.md"))
+    error, match = {
+        "algorithm_name=Tent": (ValueError, "Algorithm name not found"),
+        "teacher_int8=true": (ValueError, "ViT unsupported"),
+        "checkpoint=warm.ckpt": (FileNotFoundError, "warm.ckpt"),
+    }.get(override, (NotImplementedError, "ROADMAP.md"))
+    if override == "teacher_int8=true":
+        cfg.model = "vit_base"
     with pytest.raises(error, match=match):
         evaluate(cfg, device="cpu")
