@@ -153,6 +153,20 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     ``finetune_strategy=frozen`` and no warm-up (53 x 8 launches): the
     encoders' parameters bitwise unchanged, their BN running statistics
     moved, the fusion and heads moved.
+18. Data parallelism (``python -m stil_tta_torch.tools.dryrun_multichip``,
+    ranks in processes of their own): (a) ``config_dvm_STiL`` at full
+    width and global batch 512 (64 + 448) on 2 gloo ranks of the one card,
+    256 rows a rank, two float32 steps from one seeded state against the
+    one-process steps at 512: the largest parameter, running-statistic
+    and prototype-sum differences within the dry run's tolerance, the
+    ranks bitwise equal, 53 ``bn_stats`` and 53 ``bn_bwd_reduce``
+    launches a step on each rank, the host time of a 2-rank step and of a
+    single step and the collectives' share of the profiled 2-rank step;
+    (b) a 2-rank ``Predictor`` at global batch 512 against the single one,
+    bf16 and int8, 700 rows (a padded tail): the largest probability
+    difference and equal argmaxes; (c) a one-rank NCCL group through the
+    same path, two tiny steps; (d) the dry run's ten families at its tiny
+    shapes on 2 ranks.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -1606,6 +1620,93 @@ def warm_start_phase(dev) -> dict:
     return {"stil_frozen_train": launches}
 
 
+def _dryruns(jobs: dict) -> dict:
+    """``stil_tta_torch.tools.dryrun_multichip`` on the card once for each
+    tag of ``jobs`` (its arguments), all started together; the PASS lines
+    logged, each run's results returned by tag. Fails unless every case of
+    every run passed."""
+    import tempfile
+    t0 = time.perf_counter()
+    runs = {}
+    for tag, args in jobs.items():
+        out = tempfile.mkdtemp(prefix="dryrun_")
+        runs[tag] = (out, args, subprocess.Popen(
+            [sys.executable, "-m", "stil_tta_torch.tools.dryrun_multichip",
+             "--device", "cuda", "--out", out, *args],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results, failed = {}, []
+    for tag, (out, args, proc) in runs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        for line in stdout.splitlines():
+            if line.startswith(("dryrun_multichip", "  ")):
+                log(f"[dp] {tag}: {line}")
+        log(f"[dp] {tag}: exit {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            log(stdout[-4000:])
+            log(stderr[-4000:])
+            failed.append(tag)
+            continue
+        ranks = args[args.index("--ranks") + 1]
+        results[tag] = json.loads(
+            (Path(out) / f"dryrun_{ranks}.json").read_text())
+    if failed:
+        raise SystemExit(f"data parallel: the dry run failed: {failed}")
+    return results
+
+
+def data_parallel_phase() -> dict:
+    """Phase 18: the data-parallel slice on the one card (see the module's
+    docstring); returns the per-rank launches of the 2-rank STiL step."""
+    full = {r["case"]: r for r in _dryruns({"full width": [
+        "--ranks", "2", "--scale", "full", "--profile", "--cases", "STiL",
+        "serve", "serve[int8]"]})["full width"]}
+    r = full["STiL"]
+    expected = [53, 53]   # (bn_stats, bn_bwd_reduce) a rank-step
+    launches_ok = (all(step == expected for rank in r["launches_by_rank"]
+                       for step in rank)
+                   and all(s == expected for s in r["launches_single"]))
+    diffs = {k: r["max_abs_diff"].get(k) for k in
+             ("params", "running", "prototypes_sum")}
+    coll = r["collectives"]
+    log(f"[dp] STiL float32, global batch 512 on 2 ranks against 1 "
+        f"process: largest differences {json.dumps(diffs)} (tol "
+        f"{r['atol']} + {r['rtol']} x |value|; Adam moments, buffers and "
+        f"loss sums as the JAX dry run holds them); first step's summed "
+        f"gradients against the single process's: worst relative L2 gap "
+        f"{r['grad_gap']:.3e} (limit {r['grad_limit']}; worst leaves "
+        f"{r['grad_worst']}); ranks bitwise equal "
+        f"{r['ranks_equal']}; launches (bn_stats, bn_bwd_reduce) by rank "
+        f"and step {r['launches_by_rank']}, single {r['launches_single']}")
+    log(f"[dp] host time a step: 2 ranks {r['host_ms']} ms, 1 process "
+        f"{r['host_ms_single']} ms; collectives (dp.all_reduce and "
+        f"dp.all_gather ranges, rank 0's profiled step) {coll['ms']:.1f} ms"
+        f" = {coll['share']:.3f} of the step; calls {coll['calls']}")
+    if not (r["ok"] and r["ranks_equal"] and launches_ok):
+        raise SystemExit("data parallel: the 2-rank step differs from the "
+                         "single one, the ranks differ, or a kernel's "
+                         "launches are off")
+    for case in ("serve", "serve[int8]"):
+        s = full[case]
+        log(f"[dp] {case} (bf16 net) at batch 512 over {s['rows']} rows: "
+            f"largest probability difference {s['max_abs_diff']:.3e} (tol "
+            f"{s['atol']}); argmax equal {s['argmax_equal']}")
+    # (c) NCCL alone on the card and (d) the tiny families over gloo,
+    # side by side
+    small = _dryruns({"nccl": ["--ranks", "1", "--cases", "STiL"],
+                      "tiny": ["--ranks", "2"]})
+    backends = {tag: sorted({c["backend"] for c in res})
+                for tag, res in small.items()}
+    log(f"[dp] process group backends: {backends}")
+    if backends != {"nccl": ["nccl"], "tiny": ["gloo"]}:
+        raise SystemExit("data parallel: one rank on the card did not form "
+                         "an NCCL group, or two ranks on it not a gloo one")
+    # rank 0's measured launches at the last step
+    last = r["launches_by_rank"][0][-1]
+    return {"stil_dp_step_per_rank": {"bn_stats": last[0],
+                                      "bn_bwd_reduce": last[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -1927,6 +2028,10 @@ def main() -> int:
     by_path.update(int8_launches)
     by_path.update(warm_start_phase(dev))
     clock.lap("17 int8 and warm start")
+
+    # ---- 18. data parallelism
+    by_path.update(data_parallel_phase())
+    clock.lap("18 data parallel")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

@@ -44,6 +44,7 @@ from stil_tta_torch.data.loader import gather_batch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.models.layers import acc_dtype
 from stil_tta_torch.ops.batch_norm import running_stats_frozen
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -141,7 +142,8 @@ class CoMatch(MatchBase):
             ex = state.extra
             b_l, b_u = x[0].shape[0], w[0].shape[0]
             with train_mode_teacher(state.ema):
-                logits_m, feats_m = state.ema(
+                logits_m, feats_m = sharded(
+                    state.ema, (b_l, b_u, b_u),
                     torch.cat([x[0], w[0], s1[0]]),
                     torch.cat([x[1], w[1], s1[1]]))
                 probs = torch.softmax(logits_m[b_l:b_l + b_u], dim=1)
@@ -217,8 +219,9 @@ class CoMatch(MatchBase):
             f_us1, f_xuw, probs, probs_orig, q, mask, mean_p = \
                 teacher_targets(state, x, w, s1, epoch)
             state.net.train()
-            logits, feats = state.net(torch.cat([x[0], s0[0]]),
-                                      torch.cat([x[1], s0[1]]))
+            logits, feats = sharded(state.net, (y_l.shape[0], y_u.shape[0]),
+                                    torch.cat([x[0], s0[0]]),
+                                    torch.cat([x[1], s0[1]]))
             total, logs = losses(state, logits, feats, y_l, f_us1, probs, q,
                                  mask, epoch)
             state.optimizer.zero_grad(set_to_none=True)
@@ -245,8 +248,9 @@ class CoMatch(MatchBase):
                     state, cache_l, cache_u, il, iu, two_strong=True)
                 f_us1, f_xuw, probs, probs_orig, q, mask, mean_p = \
                     teacher_targets(state, x, w, s1, epoch)
-                logits, feats = state.net(torch.cat([x[0], s0[0]]),
-                                          torch.cat([x[1], s0[1]]))
+                logits, feats = sharded(
+                    state.net, (y_l.shape[0], y_u.shape[0]),
+                    torch.cat([x[0], s0[0]]), torch.cat([x[1], s0[1]]))
                 total, logs = losses(state, logits, feats, y_l, f_us1,
                                      probs, q, mask, epoch)
                 b_l = y_l.shape[0]

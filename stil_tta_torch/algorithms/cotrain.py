@@ -22,6 +22,7 @@ from stil_tta_torch.algorithms.base import accumulate_chunks, ema_update
 from stil_tta_torch.algorithms.match_common import MatchState
 from stil_tta_torch.algorithms.mmatch import MMatch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -82,12 +83,13 @@ class CoTrain(MMatch):
             """Student forward, teacher forward (after the EMAN lerp when
             ``lerp_ema``) and the losses."""
             b_l = y_l.shape[0]
-            om, oi, ot, _ = state.net(images, tabs)
+            rows = (b_l, images.shape[0] - b_l)
+            om, oi, ot, _ = sharded(state.net, rows, images, tabs)
             if use_ema:
                 if lerp_ema:
                     ema_update(state.ema, state.net.model, momentum, eman)
                 with torch.no_grad():
-                    _, t_i, t_t, _ = state.ema(images, tabs)
+                    _, t_i, t_t, _ = sharded(state.ema, rows, images, tabs)
             else:
                 t_i, t_t = oi.detach(), ot.detach()
             pseudo_i = torch.softmax(t_i[b_l:], dim=1)

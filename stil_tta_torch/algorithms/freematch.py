@@ -26,6 +26,7 @@ from stil_tta_torch.algorithms.match_common import (MatchBase, MatchState,
 from stil_tta_torch.losses.common import (cross_entropy, entropy_loss,
                                           soft_cross_entropy)
 from stil_tta_torch.models.layers import acc_dtype
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -90,7 +91,8 @@ class FreeMatch(MatchBase):
             probabilities, top classes, mean distribution, histogram of
             the top classes as raw counts)."""
             with torch.no_grad():
-                logits_uw, _ = state.ema(img_w, tab_w)
+                logits_uw, _ = sharded(state.ema, (img_w.shape[0],), img_w,
+                                       tab_w)
                 probs = torch.softmax(logits_uw, dim=1)
             max_probs, max_idx = probs.max(1)
             hist = torch.zeros(c, dtype=probs.dtype,
@@ -126,8 +128,9 @@ class FreeMatch(MatchBase):
             y_l, y_u, (img_x, tab_x), (img_w, tab_w), (img_s, tab_s), _ = \
                 self.batch_views(state, cache_l, cache_u, idx_l, idx_u)
             state.net.train()
-            logits, _ = state.net(torch.cat([img_x, img_s]),
-                                  torch.cat([tab_x, tab_s]))
+            logits, _ = sharded(state.net, (y_l.shape[0], y_u.shape[0]),
+                                torch.cat([img_x, img_s]),
+                                torch.cat([tab_x, tab_s]))
             ema_update(state.ema, ema_source(state.net), momentum, True)
             max_probs, max_idx, mean_probs, hist = teacher_stats(
                 state, img_w, tab_w)
@@ -158,8 +161,9 @@ class FreeMatch(MatchBase):
             def chunk(il: Tensor, iu: Tensor) -> Tensor:
                 y_l, y_u, (img_x, tab_x), (img_w, tab_w), (img_s, tab_s), \
                     _ = self.batch_views(state, cache_l, cache_u, il, iu)
-                logits, _ = state.net(torch.cat([img_x, img_s]),
-                                      torch.cat([tab_x, tab_s]))
+                logits, _ = sharded(state.net, (y_l.shape[0], y_u.shape[0]),
+                                    torch.cat([img_x, img_s]),
+                                    torch.cat([tab_x, tab_s]))
                 max_probs, max_idx, mean_probs, hist = teacher_stats(
                     state, img_w, tab_w)
                 mean_maxp = max_probs.mean()

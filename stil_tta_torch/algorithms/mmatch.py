@@ -37,6 +37,7 @@ from stil_tta_torch.losses.clip_loss import l2norm
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.models.backbones import SemiMultimodalBackbone
 from stil_tta_torch.models.layers import acc_dtype
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -171,7 +172,9 @@ class MMatch(MatchBase):
             """Student forward, targets (aligned against ``da``, smoothed
             through the state's bank after epoch 0) and losses."""
             b_l = y_l.shape[0]
-            om, oi, ot, xm = state.net(images, tabs)
+            om, oi, ot, xm = sharded(state.net,
+                                     (b_l, images.shape[0] - b_l), images,
+                                     tabs)
             feat_m = l2norm(xm.detach())
             da, pseudo = distribution_alignment(
                 da, torch.softmax(om[b_l:].detach(), dim=1))

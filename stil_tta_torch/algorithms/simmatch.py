@@ -34,6 +34,7 @@ from stil_tta_torch.algorithms.match_common import (MatchBase, MatchState,
 from stil_tta_torch.data.loader import dataset_indices, gather_batch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.models.layers import acc_dtype
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -116,8 +117,9 @@ class SimMatch(MatchBase):
             onehot_bank = F.one_hot(state.extra["bank_labels"], c).to(
                 bank.dtype)                                       # (K, C)
             with torch.no_grad():
-                logits_k, feat_k = state.ema(torch.cat([x[0], w[0]]),
-                                             torch.cat([x[1], w[1]]))
+                logits_k, feat_k = sharded(
+                    state.ema, (b_l, w[0].shape[0]), torch.cat([x[0], w[0]]),
+                    torch.cat([x[1], w[1]]))
                 prob_ku_orig = torch.softmax(logits_k[b_l:], dim=1)
                 if use_da:
                     da, prob_ku_orig = distribution_alignment(
@@ -156,8 +158,9 @@ class SimMatch(MatchBase):
             y_l, y_u, x, w, s, _ = self.batch_views(state, cache_l, cache_u,
                                                     idx_l, idx_u)
             state.net.train()
-            logits, feat = state.net(torch.cat([x[0], s[0]]),
-                                     torch.cat([x[1], s[1]]))
+            logits, feat = sharded(state.net, (y_l.shape[0], y_u.shape[0]),
+                                   torch.cat([x[0], s[0]]),
+                                   torch.cat([x[1], s[1]]))
             ema_update(state.ema, ema_source(state.net), momentum, True)
             feat_kx, da, total, logs = targets_losses(
                 state, state.da, logits, feat, x, w, y_l, int(epoch))
@@ -184,8 +187,9 @@ class SimMatch(MatchBase):
             def chunk(il: Tensor, iu: Tensor) -> Tensor:
                 y_l, y_u, x, w, s, _ = self.batch_views(
                     state, cache_l, cache_u, il, iu)
-                logits, feat = state.net(torch.cat([x[0], s[0]]),
-                                         torch.cat([x[1], s[1]]))
+                logits, feat = sharded(
+                    state.net, (y_l.shape[0], y_u.shape[0]),
+                    torch.cat([x[0], s[0]]), torch.cat([x[1], s[1]]))
                 feat_kx, da_c, total, logs = targets_losses(
                     state, da0, logits, feat, x, w, y_l, int(epoch))
                 if use_da:

@@ -44,6 +44,7 @@ from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_compute, accuracy_init,
                                         accuracy_update, auroc_compute,
                                         auroc_init, auroc_update)
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -421,18 +422,20 @@ class STiL:
             """Student forward, teacher forward (after the EMAN lerp when
             ``lerp_ema``), targets against the state's DA queue, losses."""
             net = state.net
-            outs = net(images, tabs, missing)
+            b_l = y_l.shape[0]
+            rows = (b_l, images.shape[0] - b_l)
+            outs = sharded(net, rows, images, tabs, missing)
             if use_ema:
                 if lerp_ema:
                     ema_update(state.ema, net.model, momentum, eman)
                 with torch.no_grad():
-                    tout = net.teacher(state.ema, images, tabs, missing)
+                    tout = sharded(net.teacher, rows, state.ema, images, tabs,
+                                   missing)
             else:
                 # no EMA: the student's own outputs are the teacher's
                 # (``STiLModel.py:256-257``)
                 tout = {k: outs[k].detach()
                         for k in ("out_m", "out_i", "out_t", "feat_m")}
-            b_l = y_l.shape[0]
             tg = derive_targets(tout, state.da, state.prototypes,
                                 mask_rand, b_l, y_l, use_pseudo)
             total, logs = assemble_losses(outs, tg, y_l, b_l,

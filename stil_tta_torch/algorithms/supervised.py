@@ -23,6 +23,7 @@ from stil_tta_torch.data.corrupt import corrupt_tabular
 from stil_tta_torch.data.loader import gather_batch, marginal_table
 from stil_tta_torch.losses.common import cross_entropy
 from stil_tta_torch.ops.metrics import accuracy_update
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -63,7 +64,7 @@ class Supervised(STiL):
             net.train()
             # the projectors and CLUB estimators hold no BatchNorm and no
             # dropout, and no loss reads them: the backbone alone
-            outs = net.model(imgs, tabs)
+            outs = sharded(net.model, (y_l.shape[0],), imgs, tabs)
             loss = (cross_entropy(outs["out_m"], y_l)
                     + cross_entropy(outs["out_i"], y_l)
                     + cross_entropy(outs["out_t"], y_l))

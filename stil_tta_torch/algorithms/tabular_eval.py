@@ -26,6 +26,7 @@ from stil_tta_torch.models.layers import Linear
 from stil_tta_torch.models.tabular_transformer import (
     TabularTransformerEncoder, split_field_lengths)
 from stil_tta_torch.ops.metrics import accuracy_update
+from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
 
 Tensor = torch.Tensor
@@ -106,7 +107,7 @@ class TabularEval(MatchBase):
             tabs = torch.where(draws["gate"], corrupted, rows)
             net = state.net
             net.train()
-            logits = net(None, tabs)
+            logits = sharded(net, (y.shape[0],), None, tabs)
             loss = cross_entropy(logits, y)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -12,12 +12,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from stil_tta_torch.models.layers import (LayerNorm, Linear, Mlp, drop_path,
-                                          merge_heads, scaled_attention,
-                                          split_heads)
+                                          dropout, merge_heads,
+                                          scaled_attention, split_heads)
 
 Tensor = torch.Tensor
 
@@ -46,8 +45,8 @@ class MIAttention(nn.Module):
         outs = (att(q_i, k_i, v_i), att(q_t, k_t, v_t),
                 att(q_g, torch.cat([k_g, k_i, k_t], dim=2),
                     torch.cat([v_g, v_i, v_t], dim=2)))
-        return tuple(F.dropout(self.proj(merge_heads(o)), self.proj_drop,
-                               self.training) for o in outs)
+        return tuple(dropout(self.proj(merge_heads(o)), self.proj_drop,
+                             self.training) for o in outs)
 
 
 class MITransformerLayer(nn.Module):

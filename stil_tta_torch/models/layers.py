@@ -6,6 +6,11 @@ computes in its ``dtype`` (bfloat16 on the card) the way the JAX module
 with ``dtype=bf16, param_dtype=f32`` does: inputs and weights cast to
 ``dtype``, attention scores and softmax in at least float32, LayerNorm
 statistics in at least float32.
+
+Every dropout mask and stochastic-depth draw comes from
+:func:`stil_tta_torch.parallel.collectives.uniform_rows`: under a
+data-parallel mesh a rank's mask is its rows of the single process's
+mask.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from stil_tta_torch.parallel.collectives import uniform_rows
 
 Tensor = torch.Tensor
 
@@ -62,8 +69,32 @@ def drop_path(x: Tensor, rate: float, training: bool) -> Tensor:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.floor(keep + torch.rand(shape, device=x.device))
+    mask = torch.floor(keep + uniform_rows(shape, 0, x.device))
     return (x / keep) * mask.to(x.dtype)
+
+
+def dropout(x: Tensor, rate: float, training: bool,
+            row_dim: int = 0) -> Tensor:
+    """Elementwise dropout: each element kept with probability 1 - rate
+    and scaled by 1 / (1 - rate); ``row_dim`` is the axis of the batch's
+    rows."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = uniform_rows(x.shape, row_dim, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class Dropout(nn.Module):
+    """:func:`dropout` as a module (no parameters, like ``nn.Dropout``)."""
+
+    def __init__(self, rate: float, row_dim: int = 0):
+        super().__init__()
+        self.rate, self.row_dim = rate, row_dim
+
+    def forward(self, x: Tensor) -> Tensor:
+        return dropout(x, self.rate, self.training, self.row_dim)
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
@@ -90,7 +121,7 @@ def scaled_attention(q: Tensor, k: Tensor, v: Tensor, scale: float,
     if mask is not None:
         attn = attn + mask
     attn = torch.softmax(attn, dim=-1)
-    attn = F.dropout(attn, dropout_rate, training)
+    attn = dropout(attn, dropout_rate, training)
     return attn.to(v.dtype) @ v
 
 
@@ -107,8 +138,8 @@ class Mlp(nn.Module):
         self.drop = drop
 
     def forward(self, x: Tensor) -> Tensor:
-        x = F.dropout(F.gelu(self.fc1(x)), self.drop, self.training)
-        return F.dropout(self.fc2(x), self.drop, self.training)
+        x = dropout(F.gelu(self.fc1(x)), self.drop, self.training)
+        return dropout(self.fc2(x), self.drop, self.training)
 
 
 class Attention(nn.Module):
@@ -130,8 +161,8 @@ class Attention(nn.Module):
                    for t in self.qkv(x).chunk(3, dim=-1))
         out = scaled_attention(q, k, v, self.scale, mask, self.attn_drop,
                                self.training)
-        return F.dropout(self.proj(merge_heads(out)), self.proj_drop,
-                         self.training)
+        return dropout(self.proj(merge_heads(out)), self.proj_drop,
+                       self.training)
 
 
 class Block(nn.Module):

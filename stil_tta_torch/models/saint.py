@@ -7,7 +7,11 @@ column (vectorised: ``con_mlp_w1/b1/w2/b2`` stack the columns' weights),
 positional encodings on the CLS and categorical tokens only, then per
 layer column attention and intersample (row) attention, where the batch
 is the sequence: ``(1, B, n * dim)``. A prediction therefore depends on
-its batch mates.
+its batch mates. Under a data-parallel mesh the intersample attention
+stays global, as under the JAX package's GSPMD: each rank's rows attend
+over the keys and values of every rank's rows, and the feed-forward
+dropout masks are the single process's
+(:mod:`stil_tta_torch.parallel.collectives`).
 
 Quirks of the reference kept as the JAX module keeps them: each sublayer
 is ``fn(norm(x)) + norm(x)`` (the residual carries the normed input);
@@ -33,8 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stil_tta_torch.models.layers import (LayerNorm, Linear, merge_heads,
-                                          scaled_attention, split_heads)
+from stil_tta_torch.models.layers import (Dropout, LayerNorm, Linear,
+                                          merge_heads, scaled_attention,
+                                          split_heads)
+from stil_tta_torch.parallel.collectives import active_shard, gather_rows
 
 Tensor = torch.Tensor
 
@@ -47,19 +53,29 @@ _CON_MLP = (("con_mlp_w1", "layers.0.weight", True),
 
 
 class SaintAttention(nn.Module):
-    """``model_util.py:60-87``: qkv without bias, out with bias."""
+    """``model_util.py:60-87``: qkv without bias, out with bias.
+    ``intersample``: the input is ``(1, B, n * dim)``, the batch's rows
+    the sequence."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 intersample: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.scale = heads, dim_head ** -0.5
+        self.intersample = intersample
         self.to_qkv = Linear(dim, inner * 3, bias=False, dtype=dtype)
         self.to_out = Linear(inner, dim, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         q, k, v = (split_heads(t, self.heads)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
+        shard = active_shard()
+        if self.intersample and shard is not None:
+            # the keys and values of every rank's rows (axis 2 of (1, H,
+            # B, D)); each rank's rows take every rank's queries' gradients
+            k, v = gather_rows(torch.cat([k, v], dim=-1), shard, dim=2,
+                               summed=True).chunk(2, dim=-1)
         return self.to_out(merge_heads(scaled_attention(q, k, v,
                                                         self.scale)))
 
@@ -72,13 +88,14 @@ class GEGLU(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """``model_util.py:43-57``: Linear -> GEGLU -> Dropout -> Linear,
-    torch keys ``net.0`` / ``net.3``."""
+    torch keys ``net.0`` / ``net.3``; ``row_dim`` is the axis of the
+    batch's rows."""
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, row_dim: int = 0):
         super().__init__()
         self.net = nn.Sequential(Linear(dim, dim * mult * 2, dtype=dtype),
-                                 GEGLU(), nn.Dropout(dropout),
+                                 GEGLU(), Dropout(dropout, row_dim),
                                  Linear(dim * mult, dim, dtype=dtype))
 
     def forward(self, x: Tensor) -> Tensor:
@@ -159,10 +176,10 @@ class SAINTEncoder(nn.Module):
                             dtype),
             PreNormResidual(dim, GEGLUFeedForward(dim, 4, ff_dropout, dtype),
                             dtype),
-            PreNormResidual(n * dim, SaintAttention(n * dim, heads, 64,
-                                                    dtype), dtype),
-            PreNormResidual(n * dim, GEGLUFeedForward(n * dim, 4, ff_dropout,
-                                                      dtype), dtype),
+            PreNormResidual(n * dim, SaintAttention(
+                n * dim, heads, 64, dtype, intersample=True), dtype),
+            PreNormResidual(n * dim, GEGLUFeedForward(
+                n * dim, 4, ff_dropout, dtype, row_dim=1), dtype),
         ]) for _ in range(depth))
         self._register_state_dict_hook(_split_con_mlp)
         self._register_load_state_dict_pre_hook(_stack_con_mlp)

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from stil_tta_torch.models.layers import Block, LayerNorm, Linear
+from stil_tta_torch.models.layers import Block, LayerNorm, Linear, dropout
 
 Tensor = torch.Tensor
 
@@ -87,8 +87,7 @@ class TabularTransformerEncoder(nn.Module):
         tokens = torch.cat([cls, tokens], dim=1)
         tokens = tokens + self.column_embedding.weight.to(self.dtype)[None]
         tokens = self.norm(tokens)
-        return nn.functional.dropout(tokens, self.embedding_dropout,
-                                     self.training)
+        return dropout(tokens, self.embedding_dropout, self.training)
 
     def forward(self, x: Tensor, missing_mask: Optional[Tensor] = None
                 ) -> Tensor:

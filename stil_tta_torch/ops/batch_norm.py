@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from stil_tta_torch.ops import cuda_build
+from stil_tta_torch.parallel import collectives
 
 THREADS = 256          # kThreads in csrc/bn_reduce_common.cuh
 # the one-launch reduction of csrc/bn_reduce_ring.cuh: its ring, tiles, grid
@@ -339,7 +340,14 @@ class BNTrain(torch.autograd.Function):
     computed in float32 as ``a * dy + b * x + c`` and cast to x's dtype;
     ``dweight = sum(dy x_hat)``, ``dbias = sum(dy)``. mean and var are not
     differentiable: they feed the running statistics only, as in the
-    reference."""
+    reference.
+
+    In a sharded forward (:func:`stil_tta_torch.parallel.sharded`) the
+    rows are the rank's share of the global batch: the forward's
+    ``(sum, sum of squares)`` and the backward's ``(sum dy, sum dy *
+    x_hat)`` are all-reduced over the mesh and M counts the global rows,
+    so y, dx, mean and var are the global batch's; dweight and dbias stay
+    the rank's sums, which the gradient all-reduce adds up."""
 
     dy_copies = 0  # grad_outputs that were not channels_last (copied)
 
@@ -350,6 +358,12 @@ class BNTrain(torch.autograd.Function):
         x2d = rows(x)
         n = x2d.shape[0]
         s, ss = stats(x2d)
+        shard = collectives.active_shard()
+        ctx.mesh = None if shard is None else shard.mesh
+        if ctx.mesh is not None:
+            s, ss = collectives.all_reduce(ctx.mesh,
+                                           torch.cat([s, ss])).split(1)
+            n *= ctx.mesh.size
         mean = s[0] / n
         var = (ss[0] / n - mean * mean).clamp_min(0.0)
         inv = torch.rsqrt(var + eps)
@@ -372,6 +386,11 @@ class BNTrain(torch.autograd.Function):
         x2d, dy2d = rows(x), rows(dy.to(x.dtype))
         m = x2d.shape[0]
         sdy, sdyxh = ctx.bwd_reduce(x2d, dy2d, mean, inv)
+        dweight, dbias = sdyxh[0].to(weight.dtype), sdy[0].to(weight.dtype)
+        if ctx.mesh is not None:
+            sdy, sdyxh = collectives.all_reduce(
+                ctx.mesh, torch.cat([sdy, sdyxh])).split(1)
+            m *= ctx.mesh.size
         sdy, sdyxh = sdy[0], sdyxh[0]
         # dx = a*dy + b*x + c per channel, with x_hat = (x - mean) * inv
         a = weight.to(inv.dtype) * inv
@@ -380,8 +399,7 @@ class BNTrain(torch.autograd.Function):
         dx2d = torch.addcmul(torch.addcmul(c, x2d, b), dy2d, a).to(x.dtype)
         n, ch, h, w = x.shape
         dx = dx2d.view(n, h, w, ch).permute(0, 3, 1, 2)
-        return (dx, sdyxh.to(weight.dtype), sdy.to(weight.dtype), None,
-                None, None)
+        return dx, dweight, dbias, None, None, None
 
 
 class BatchNorm2d(nn.Module):
@@ -420,7 +438,8 @@ class BatchNorm2d(nn.Module):
                                          self.stats, self.bwd_reduce)
             if not self.update_running:
                 return y
-            n = x.numel() // c
+            shard = collectives.active_shard()
+            n = x.numel() // c * (1 if shard is None else shard.mesh.size)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(

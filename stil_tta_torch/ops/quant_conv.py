@@ -44,6 +44,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from stil_tta_torch.parallel import collectives
+
 Tensor = torch.Tensor
 
 
@@ -66,8 +68,10 @@ def quantize(x: Tensor, weight: Tensor
     s_w = torch.clamp_min(wf.abs().amax(dim=(1, 2, 3)) / q127, 1e-30)
     w_q = torch.clamp(torch.round(wf / s_w[:, None, None, None]),
                       -127, 127).to(torch.int8)
-    # |x| and its max are exact in x's dtype, and so is the cast
-    s_x = torch.clamp_min(x.abs().amax().to(cdt) / q127, 1e-30)
+    # |x| and its max are exact in x's dtype, and so is the cast; in a
+    # sharded forward the max is the global batch's
+    amax = collectives.global_max(x.abs().amax().to(cdt))
+    s_x = torch.clamp_min(amax / q127, 1e-30)
     xf = x.to(cdt)
     xf = xf.div_(s_x) if xf is not x else xf / s_x
     x_q = xf.round_().clamp_(-127, 127).to(torch.int8)

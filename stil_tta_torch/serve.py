@@ -12,13 +12,21 @@ Serves every algorithm of the registry. ``--int8`` (``Predictor(int8=
 True)``) runs the image tower's convolutions in int8
 (``ops/quant_conv.py``) for the nets whose forward takes ``int8_image``
 (STiL's); the activation scale is per batch, so a sample's int8 result
-depends on its batch mates and on ``--batch-size``. The JAX package's
-data-parallel serving is still to port (ROADMAP.md).
+depends on its batch mates and on ``--batch-size``.
+
+``--data-parallel`` (``Predictor(mesh=...)``) scores each batch over the
+ranks of a ``torch.distributed.run`` job, each rank its share of the
+rows, with the single process's results; rank 0 writes the CSV:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m stil_tta_torch.serve --data-parallel --config-name ... \
+        --checkpoint model.ckpt --source data/test --out predictions.csv
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 from typing import Optional, Sequence
 
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from stil_tta_torch.config import load_config
+from stil_tta_torch.parallel import Mesh, sharded
+from stil_tta_torch.parallel.collectives import rank_index
 from stil_tta_torch.train.test import build_algo
 
 
@@ -40,10 +50,21 @@ class Predictor:
     ``int8``: the int8 image tower (``stil_tta_tpu/serve.py:41-80``),
     refused with ``ValueError`` for a net whose forward takes no
     ``int8_image`` and for a ViT encoder, as the JAX package refuses
-    them."""
+    them.
 
-    def __init__(self, algo, batch_size: int = 256, int8: bool = False):
+    ``mesh``: data-parallel serving (``stil_tta_tpu/serve.py:41-61``).
+    Every rank calls the predictor with the same arrays; ``batch_size`` is
+    rounded up to a multiple of the mesh's size, each rank runs the net on
+    its rows of each batch (the int8 scale and SAINT's attention still
+    see the whole batch), and every rank returns all the
+    probabilities."""
+
+    def __init__(self, algo, batch_size: int = 256, int8: bool = False,
+                 mesh: Optional[Mesh] = None):
         self.algo = algo
+        self.mesh = mesh
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.size) * mesh.size
         self.batch_size = batch_size
         self.kw = {}
         if int8:
@@ -62,19 +83,28 @@ class Predictor:
                         field_lengths: Optional[Sequence[int]] = None,
                         batch_size: int = 256, device="cuda",
                         dtype: torch.dtype = torch.bfloat16,
-                        int8: bool = False) -> "Predictor":
+                        int8: bool = False,
+                        mesh: Optional[Mesh] = None) -> "Predictor":
         """A predictor with the weights of a reference-layout ``.ckpt``."""
         cfg.checkpoint = checkpoint
         algo = build_algo(cfg, list(field_lengths or cfg.field_lengths),
                           device, dtype)
-        return cls(algo, batch_size, int8=int8)
+        return cls(algo, batch_size, int8=int8, mesh=mesh)
 
     @torch.no_grad()
-    def predict(self, images: torch.Tensor,
-                tabular: torch.Tensor) -> torch.Tensor:
-        """One batch already on the card -> (B, C) float32 probabilities."""
+    def predict(self, images: torch.Tensor, tabular: torch.Tensor,
+                rows: Optional[int] = None) -> torch.Tensor:
+        """One batch already on the card -> (B, C) float32 probabilities.
+        With ``rows``, the batch has that many rows and ``images`` and
+        ``tabular`` hold this rank's share of them (``rank_index``)."""
         net = self.algo.net.eval()
-        out = net(self.algo.aug_eval(images), tabular, **self.kw)
+
+        def forward(img: torch.Tensor, tab: torch.Tensor):
+            return net(self.algo.aug_eval(img), tab, **self.kw)
+
+        with self.mesh or contextlib.nullcontext():
+            out = sharded(forward, (rows or images.shape[0],), images,
+                          tabular, local=rows is not None)
         # STiL's nets return a dict of heads, the comparison families'
         # a tuple led by the multimodal head's logits, TabularNet the
         # logits alone (``serve.py:82-92``)
@@ -91,6 +121,9 @@ class Predictor:
         dev = self.algo.device
         outs = []
         bs = self.batch_size
+        # under a mesh each rank uploads only its rows of each batch
+        keep = (None if self.mesh is None
+                else rank_index(self.mesh, (bs,)).numpy())
         for start in range(0, len(images), bs):
             img = np.asarray(images[start:start + bs])
             tab = np.asarray(tabular[start:start + bs], np.float32)
@@ -98,8 +131,11 @@ class Predictor:
             if n < bs:
                 img = np.concatenate([img, np.repeat(img[:1], bs - n, 0)])
                 tab = np.concatenate([tab, np.repeat(tab[:1], bs - n, 0)])
+            if keep is not None:
+                img, tab = img[keep], tab[keep]
             outs.append(self.predict(torch.tensor(img, device=dev),
-                                     torch.tensor(tab, device=dev))[:n])
+                                     torch.tensor(tab, device=dev),
+                                     rows=None if keep is None else bs)[:n])
         return torch.cat(outs).cpu().numpy()
 
 
@@ -115,8 +151,16 @@ def main(argv=None) -> int:
     ap.add_argument("--int8", action="store_true",
                     help="int8 image-tower convs (an inference numerics "
                          "change; STiL's nets only)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="score over the ranks of a torch.distributed.run "
+                         "job; rank 0 writes the CSV")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
+    device, mesh = args.device, None
+    if args.data_parallel:
+        from stil_tta_torch.parallel import create_mesh, init_process_group
+        device = init_process_group(args.device)
+        mesh = create_mesh()
 
     from stil_tta_torch.data.source import ArraySource
     cfg = load_config(args.config_name, overrides=args.overrides)
@@ -124,8 +168,12 @@ def main(argv=None) -> int:
     cfg.num_classes = cfg.num_classes or src.num_classes
     predictor = Predictor.from_checkpoint(
         cfg, args.checkpoint, src.field_lengths, args.batch_size,
-        device=args.device, int8=args.int8)
+        device=device, int8=args.int8, mesh=mesh)
     probs = predictor(np.asarray(src.images), src.tabular)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+        if mesh.rank:
+            return 0
     pred = probs.argmax(1)
     acc = float((pred == src.labels).mean())
     with open(args.out, "w") as f:

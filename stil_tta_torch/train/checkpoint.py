@@ -48,13 +48,10 @@ def _set_default_rng_state(device: torch.device, s: torch.Tensor) -> None:
         torch.set_rng_state(s.cpu())
 
 
-def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
-                    = None, name: str = "best") -> Path:
-    """Write ``state`` (a ``STiLState`` or a ``MatchState``) to
-    ``<directory>/<name>`` and ``config`` to
-    ``<directory>/<name>_config.json``; returns the checkpoint's path."""
-    directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
+def state_tree(state) -> dict:
+    """Everything a checkpoint of ``state`` (a ``STiLState`` or a
+    ``MatchState``) holds, as a tree of dicts, lists, tensors and
+    numbers."""
     device = state.log_count.device
     payload = {
         "net": state.net.state_dict(),
@@ -72,6 +69,17 @@ def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
     payload.update({k: None if getattr(state, k, None) is None
                     else dataclasses.asdict(getattr(state, k))
                     for k in _METRICS})
+    return payload
+
+
+def save_checkpoint(directory: os.PathLike, state, config: Optional[dict]
+                    = None, name: str = "best") -> Path:
+    """Write ``state`` (a ``STiLState`` or a ``MatchState``) to
+    ``<directory>/<name>`` and ``config`` to
+    ``<directory>/<name>_config.json``; returns the checkpoint's path."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    payload = state_tree(state)
     path = directory / name
     tmp = path.with_name(f"{name}.{os.getpid()}.tmp")
     torch.save(payload, tmp)

@@ -28,6 +28,8 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from stil_tta_torch.parallel import collectives
+
 
 class Adam(torch.optim.Optimizer):
     """Adam with L2 weight decay folded into the gradient, the first
@@ -145,11 +147,17 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
 def step(opt: torch.optim.Optimizer) -> None:
     """``opt.step()`` where a parameter the loss did not reach takes a zero
     gradient, as under ``jax.grad``: Adam then still decays its moments,
-    moves it by them and applies weight decay to it."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    moves it by them and applies weight decay to it. Under a data-parallel
+    mesh every gradient (the frozen group's too, whose moments advance) is
+    first summed over the ranks, once: each rank's gradient is its rows'
+    share of the global batch's loss."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    mesh = collectives.active_mesh()
+    if mesh is not None:
+        collectives.all_reduce_grads(mesh, params)
     opt.step()
 
 

@@ -293,8 +293,9 @@ def test_port_imports_no_jax_jax_package_or_triton():
     # models.saint), slice 7's (algorithms.match_common,
     # algorithms.mmatch, algorithms.cotrain) and slice 8's
     # (algorithms.simmatch, algorithms.comatch, algorithms.freematch);
-    # slice 11's ops.quant_conv and tools.bn_repeat
-    assert int(n) >= 50 and bad.strip() == "[]", out.stdout
+    # slice 11's ops.quant_conv and tools.bn_repeat; slice 12's parallel,
+    # parallel.mesh, parallel.collectives and tools.dryrun_multichip
+    assert int(n) >= 54 and bad.strip() == "[]", out.stdout
     assert {"stil_tta_torch.algorithms.registry",
             "stil_tta_torch.models.saint",
             "stil_tta_torch.algorithms.match_common",
@@ -304,4 +305,8 @@ def test_port_imports_no_jax_jax_package_or_triton():
             "stil_tta_torch.algorithms.comatch",
             "stil_tta_torch.algorithms.freematch",
             "stil_tta_torch.ops.quant_conv",
-            "stil_tta_torch.tools.bn_repeat"} <= set(names.split())
+            "stil_tta_torch.tools.bn_repeat",
+            "stil_tta_torch.parallel",
+            "stil_tta_torch.parallel.mesh",
+            "stil_tta_torch.parallel.collectives",
+            "stil_tta_torch.tools.dryrun_multichip"} <= set(names.split())

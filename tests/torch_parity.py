@@ -9,6 +9,7 @@ float32 default.
 
 import contextlib
 import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -435,17 +436,39 @@ def reference_ckpt(payload: dict, algorithm: str, path) -> None:
     torch.save({"state_dict": sd}, path)
 
 
+@contextlib.contextmanager
+def first_checkpoint_kept(directory):
+    """Inside, the first ``checkpoint_last`` a training run writes (after
+    its first epoch, with ``checkpoint_every_n_epochs=1``) is written to
+    ``directory`` as well, with its config: the checkpoint a run that
+    stopped there would resume from. Later epochs overwrite only the
+    run's own."""
+    from stil_tta_torch.train import checkpoint
+    real = checkpoint.save_checkpoint
+
+    def save(logdir, state, config=None, name="best"):
+        path = real(logdir, state, config, name)
+        if name == "checkpoint_last" and not (Path(directory)
+                                              / name).exists():
+            real(directory, state, config, name)
+        return path
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(checkpoint, "save_checkpoint", save)
+        yield
+
+
 def cli_resume_exact(name: str, tmp_path, *extra) -> dict:
     """``python -m stil_tta_torch.run`` on the CPU at test size: two
-    epochs straight through equal bitwise one epoch and a resumed second
-    (net, teacher, Adam, buffers, generators, sums). Returns the resumed
-    run's last checkpoint; the three runs' directories are removed."""
+    epochs straight through equal bitwise the same run's first-epoch
+    checkpoint resumed for the second (net, teacher, Adam, buffers,
+    generators, sums). Returns the resumed run's last checkpoint; the
+    runs' directories are removed."""
     from stil_tta_torch import run as port_run
     base = ["--config-name", name] + FIX_CLI + FIX_TRAIN + list(extra)
-    assert port_run.main(base + ["max_epochs=2",
-                                 f"logdir={tmp_path / 'a'}"]) == 0
-    assert port_run.main(base + ["max_epochs=1",
-                                 f"logdir={tmp_path / 'b'}"]) == 0
+    with first_checkpoint_kept(tmp_path / "b"):
+        assert port_run.main(base + ["max_epochs=2",
+                                     f"logdir={tmp_path / 'a'}"]) == 0
     assert port_run.main([
         "--config-name", name, "--device", "cpu", "resume_training=True",
         f"checkpoint={tmp_path / 'b' / 'checkpoint_last'}", "max_epochs=2",
@@ -496,3 +519,78 @@ def cli_train_resume_test(name: str, tmp_path, *extra) -> dict:
     assert (tmp_path / "t" / "test_results.csv").exists()
     ckpt.unlink()
     return resumed
+
+
+def dp_port_job(rank: int, world: int, address: str, path: str) -> None:
+    """One rank of the port's side of ``tests/test_torch_parallel_jax.py``,
+    run in a process of its own (``python -c "from tests.torch_parity
+    import dp_port_job; dp_port_job(rank, world, address, path)"``): the
+    job written to ``path`` (a BatchNorm forward and backward, a STiL
+    train step, ``Predictor`` scores) on a ``world``-rank gloo mesh. Rank
+    0 writes the results to ``path + ".out"``; each rank's digest of its
+    net's state goes with them."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.ops.batch_norm import BatchNorm2d
+    from stil_tta_torch.parallel import (create_mesh, init_process_group,
+                                         sharded)
+    from stil_tta_torch.parallel.collectives import all_reduce_grads
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.convert import load_train_state
+
+    torch.set_num_threads(1)
+    init_process_group("cpu", rank, world, address)
+    mesh = create_mesh()
+    job = torch.load(path, weights_only=False)
+    out = {}
+
+    b = job["bn"]
+    bn = BatchNorm2d(b["weight"].shape[0]).train()
+    with torch.no_grad():
+        bn.weight.copy_(b["weight"])
+        bn.bias.copy_(b["bias"])
+    x = b["x"].clone().requires_grad_()
+    with mesh:
+        y = sharded(bn, (x.shape[0],), x)
+    (y * b["g"]).sum().backward()
+    all_reduce_grads(mesh, [x, bn.weight, bn.bias])
+    out["bn"] = {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+                 "dbias": bn.bias.grad, "running_mean": bn.running_mean,
+                 "running_var": bn.running_var}
+
+    def stil(spec):
+        cfg = load_config("config_dvm_STiL", spec["overrides"])
+        cfg.field_lengths = list(spec["field_lengths"])
+        cfg.repeat_ratio = spec["repeat_ratio"]
+        algo = STiL(cfg, spec["field_lengths"], dtype=torch.float64,
+                    device="cpu")
+        for layer in algo.net.model.transformer:   # the fusion's dropout
+            layer.drop_path = layer.mlp.drop = 0.0
+            layer.attn.attn_drop = layer.attn.proj_drop = 0.0
+        state = algo.init_state(seed=0)
+        load_train_state(state, spec["carried"])
+        return algo, state
+
+    s = job["step"]
+    algo, state = stil(s)
+    with mesh:
+        algo.make_train_step()(state, s["cl"], s["cu"],
+                               torch.arange(s["b_l"]), torch.arange(s["b_u"]),
+                               s["epoch"], mask_rand=s["mask"])
+    digest = hashlib.sha256(b"".join(
+        t.numpy().tobytes() for t in state.net.state_dict().values()))
+    digests = [None] * world
+    dist.all_gather_object(digests, digest.hexdigest())
+    out["step"] = {"state": state, "digests": digests}
+
+    p = job["serve"]
+    algo, _ = stil(p)
+    out["serve"] = Predictor(algo, p["batch_size"], mesh=mesh)(
+        p["images"], p["tabular"])
+    if rank == 0:
+        torch.save(out, path + ".out")
+    dist.destroy_process_group()
