@@ -167,6 +167,34 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     difference and equal argmaxes; (c) a one-rank NCCL group through the
     same path, two tiny steps; (d) the dry run's ten families at its tiny
     shapes on 2 ranks.
+19. The host stream and the rest of the encoder zoo: (a) splits of the
+    DVM widths written from the seed (32,768 unlabelled and 4,096
+    labelled rows of 128² x 3 uint8, read back memmapped), then
+    ``config_dvm_STiL`` at batch 512 for one epoch of 16 steps from them,
+    twice through the ``DeviceCache`` and twice with ``host_stream=true``
+    in turns, the native gather built before the first (cuDNN
+    deterministic): 53 + 53 launches a step on each, the
+    checkpoints bitwise equal (or the host runs within the two cache
+    runs' gap), steps/s, the consumer's waits, queue occupancy, the
+    native gather's rate and the pinned pool; a host-stream step against
+    a cache step in turns on the host's clock, and one host-stream step
+    profiled (its idle share); (b) both BN kernels against plain at every
+    (M, C) the zoo adds to phase 3's list; for ResNet-34, -101, -152,
+    ResNeXt-50 (32x4d), ResNeXt-101 (32x8d) and the wide ResNet-50 and
+    -101 one bfloat16 STiL step at batch 512 with the net's BN count of
+    launches of each kernel (36, 104, 155, 53, 104, 53, 104), a timed and
+    a profiled step (host clock, device busy, peak memory), and
+    phase 7's float32 step with the kernels against the plain pair;
+    ``vit_small`` and ``vit_base``: two STiL steps with no BN kernel
+    launched and ``Predictor`` at 512; (c) the grouped int8 convolution
+    bitwise equal to its plain route at every grouped shape of ResNeXt-50
+    and -101 at batch 512, timed against bf16 cuDNN at ResNeXt-50's,
+    ``Predictor(int8=True)`` on ResNeXt-50 beside the bf16 one (argmax
+    agreement over 0.95, one profiled serving batch with 549
+    ``aten::_int_mm`` calls: 37 convs and 16 grouped ones of 32 groups),
+    phase 17 (c)'s tower forward on ResNeXt-50 (cosine over 0.99, 549
+    calls, no convolution kernel), and one ``teacher_int8`` step on
+    ResNeXt-50 (549 calls).
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -1377,7 +1405,8 @@ def time_int8_convs(shapes, gen, dev, buf) -> dict:
         x, wt = _conv_inputs(shape, gen, dev)
         x_q, w_q, s_x, s_w = qc.quantize(x, wt)
         cols, (_, ho, wo) = qc.im2col(x_q, k, k, s, p)
-        wm = qc.weight_matrix(w_q, cols.shape[1])
+        wm = qc.weight_matrix(w_q, cols.shape[-1])
+        cols, wm = cols[0], wm[0]
         y = torch._int_mm(cols, wm)
         m = b * ho * wo
 
@@ -1390,7 +1419,7 @@ def time_int8_convs(shapes, gen, dev, buf) -> dict:
         parts = {
             "quantize": time_ms(lambda a: qc.quantize(*a), (x, wt), buf, 20),
             "im2col": time_ms(lambda a: (qc.im2col(a, k, k, s, p),
-                                         qc.weight_matrix(w_q, cols.shape[1])),
+                                         qc.weight_matrix(w_q, cols.shape[-1])),
                               x_q, buf, 20),
             "int_mm": time_ms(lambda a: torch._int_mm(*a), (cols, wm), buf,
                               20),
@@ -1420,13 +1449,15 @@ def time_int8_convs(shapes, gen, dev, buf) -> dict:
     return dict(tot)
 
 
-def int8_forward_phase(algo, images, tabular) -> None:
-    """Phase 17 (c): the eval forward of ResNet-50 at batch 512, int8
-    against bf16 on the same weights and inputs: the cosine of the
-    pooled features (> 0.99, the JAX package's bound), the share of
-    agreeing argmaxes of ``out_m``, both towers' times, and a profile of
-    the int8 tower: 53 ``aten::_int_mm`` calls, the GEMM kernels they
-    launch by name, and no convolution kernel."""
+def int8_forward_phase(algo, images, tabular, int_mm_calls: int = 53
+                       ) -> float:
+    """Phase 17 (c) (and 19 (c) for ResNeXt-50): the eval forward of the
+    net's tower at batch 512, int8 against bf16 on the same weights and
+    inputs: the cosine of the pooled features (> 0.99, the JAX package's
+    bound), the share of agreeing argmaxes of ``out_m``, both towers'
+    times, and a profile of the int8 tower: ``int_mm_calls``
+    ``aten::_int_mm`` calls (53 for ResNet-50), the GEMM kernels they
+    launch by name, and no convolution kernel. Returns the cosine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     net = algo.net.eval()
@@ -1468,7 +1499,8 @@ def int8_forward_phase(algo, images, tabular) -> None:
                                            "splitk", "imma"))}
     convs = {k: n for k, n in kernels.items()
              if any(t in k.lower() for t in CONV_KERNEL_MARKS)}
-    log(f"[int8] eval forward of the tower at batch {img.shape[0]}: cosine "
+    log(f"[int8] eval forward of the {algo.cfg.model} tower at batch "
+        f"{img.shape[0]}: cosine "
         f"of the pooled features, int8 against bf16, {cos:.6f} (bound 0.99;"
         f" per sample min {float(per.min()):.6f}); out_m argmax agreement "
         f"{agree:.4f}; tower forward int8 {ms[True]} ms, bf16 {ms[False]} "
@@ -1480,9 +1512,12 @@ def int8_forward_phase(algo, images, tabular) -> None:
     if split:
         log(f"[int8] the integer GEMMs launch {split} kernels beside their "
             f"{int_mm} main ones (split-K or helper kernels)")
-    if int_mm != 53 or convs or not math.isfinite(cos) or cos <= 0.99:
-        raise SystemExit("int8 eval forward: expected 53 _int_mm calls, no "
-                         "convolution kernel and a cosine over 0.99")
+    if int_mm != int_mm_calls or convs or not math.isfinite(cos) \
+            or cos <= 0.99:
+        raise SystemExit(f"int8 eval forward: expected {int_mm_calls} "
+                         "_int_mm calls, no convolution kernel and a cosine "
+                         "over 0.99")
+    return cos
 
 
 def int8_phase(dev, single: dict, serve_sps: float) -> dict:
@@ -1705,6 +1740,585 @@ def data_parallel_phase() -> dict:
     last = r["launches_by_rank"][0][-1]
     return {"stil_dp_step_per_rank": {"bn_stats": last[0],
                                       "bn_bwd_reduce": last[1]}}
+
+
+# ---- phase 19: the host stream and the rest of the encoder zoo -----------
+
+HOST_LABELLED, HOST_UNLABELLED = 4096, 32768   # 128² x 3 uint8 rows
+HOST_STEPS = 16             # limit_train_batches of the host-stream epoch
+HOST_DATA = Path("runs/chip_smoke_host_data")
+# the ResNets of the zoo beyond ResNet-50, each with its BatchNorm count
+# (the launches of each BN kernel a train step)
+ZOO_RESNETS = (("resnet34", 36), ("resnet101", 104), ("resnet152", 155),
+               ("resnext50_32x4d", 53), ("resnext101_32x8d", 104),
+               ("wide_resnet50_2", 53), ("wide_resnet101_2", 104))
+ZOO_VITS = ("vit_small", "vit_base")
+# ResNeXt-50's teacher forward in int8: 37 ungrouped convs, one integer
+# GEMM each, and 16 grouped 3x3 convs of 32 groups, one GEMM a group
+RESNEXT50_INT_MM = 37 + 16 * 32
+# int8 against bf16 serving of ResNeXt-50 with random weights (286
+# classes): the share of agreeing argmaxes must pass this (0.9824 read on
+# the H100)
+INT8_SERVE_AGREE = 0.95
+
+
+def zoo_bn_shapes(name: str, batch: int = BATCH) -> list:
+    """(M, C) of each BatchNorm input of the ``name`` tower at ``batch``
+    and IMG, in forward order (read on the meta device)."""
+    from stil_tta_torch.models.resnet import image_encoder
+    from stil_tta_torch.ops.batch_norm import BatchNorm2d
+    with torch.device("meta"):
+        tower = image_encoder(name).eval()
+    seen = []
+    for m in tower.modules():
+        if isinstance(m, BatchNorm2d):
+            m.register_forward_pre_hook(lambda mod, inp: seen.append(
+                (batch * inp[0].shape[2] * inp[0].shape[3], inp[0].shape[1])))
+    with torch.no_grad():
+        tower(torch.zeros(1, IMG, IMG, 3, device="meta"))
+    return seen
+
+
+def grouped_conv_shapes(name: str, batch: int = BATCH) -> list:
+    """(batch, Cin, H, W, Cout, k, stride, padding, groups) of each
+    grouped convolution of the ``name`` tower, in forward order."""
+    from stil_tta_torch.models.resnet import Conv2d, image_encoder
+    with torch.device("meta"):
+        tower = image_encoder(name).eval()
+    seen = []
+    for m in tower.modules():
+        if isinstance(m, Conv2d) and m.groups > 1:
+            m.register_forward_pre_hook(lambda mod, inp: seen.append(
+                (batch, inp[0].shape[1], inp[0].shape[2], inp[0].shape[3],
+                 mod.out_channels, mod.kernel_size[0], mod.stride[0],
+                 mod.padding[0], mod.groups)))
+    with torch.no_grad():
+        tower(torch.zeros(1, IMG, IMG, 3, device="meta"))
+    return seen
+
+
+def _tensors(tree, prefix=""):
+    """Every tensor of a checkpoint payload, by path."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{prefix}/{i}")
+
+
+def write_host_splits(field_lengths) -> dict:
+    """Phase 19 (a): the DVM-width splits written from the seed as
+    artifact directories under HOST_DATA (images memmapped when read);
+    returns each split's bytes on disk."""
+    from stil_tta_torch.data.source import synthetic_source
+    shutil.rmtree(HOST_DATA, ignore_errors=True)
+    sizes = {}
+    for seed, (split, n, frac) in enumerate((
+            ("train_labelled", HOST_LABELLED, 1.0),
+            ("train_unlabelled", HOST_UNLABELLED, 0.0),
+            ("val", 1024, 1.0), ("test", 512, 1.0))):
+        synthetic_source(n, num_classes=286, field_lengths=field_lengths,
+                         image_size=IMG, labelled_frac=frac,
+                         seed=seed).save(HOST_DATA / split)
+        sizes[split] = sum(f.stat().st_size
+                           for f in (HOST_DATA / split).iterdir())
+    return sizes
+
+
+def host_stream_run(host_stream: bool, tag: str) -> dict:
+    """One epoch of ``config_dvm_STiL`` at batch 512 from HOST_DATA,
+    HOST_STEPS steps; returns the checkpoint's tensors, the launches,
+    the steps/s and the host streams the run made."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data import loader as loader_mod
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train import evaluate as evaluate_mod
+    logdir = Path(f"runs/chip_smoke_host_{tag}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = load_config("config_dvm_STiL", [
+        "dataset=synthetic_dvm", "num_classes=286", "batch_size=512",
+        "synthetic=false", f"data_base={HOST_DATA}", "evaluate=True",
+        "start_epoch=0", "strict_prototypes=false", "test_and_eval=false",
+        "enable_progress_bar=false", "max_epochs=1",
+        f"limit_train_batches={HOST_STEPS}", "limit_val_batches=1",
+        "checkpoint_every_n_epochs=1", f"logdir={logdir}",
+        f"host_stream={str(host_stream).lower()}"])
+    streams = []
+
+    class Recorded(loader_mod.HostStream):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            streams.append(self)
+
+    evaluate_mod.HostStream = Recorded
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        evaluate_mod.evaluate(cfg, device="cuda")
+    finally:
+        evaluate_mod.HostStream = loader_mod.HostStream
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (bn_stats.launches, bn_bwd_reduce.launches)
+    rec = [json.loads(line) for line in
+           (logdir / "metrics.jsonl").read_text().splitlines()]
+    sps = [r["multimodal.train.samples_per_sec"] for r in rec
+           if "multimodal.train.samples_per_sec" in r][-1]
+    payload = torch.load(logdir / "checkpoint_last", map_location="cpu",
+                         weights_only=True)
+    log(f"[host] {tag}: host_stream {host_stream}, {HOST_STEPS} steps at "
+        f"batch 512: {sps / 512:.3f} steps/s (epoch, host clock), run "
+        f"{wall:.1f} s; launches (bn_stats, bn_bwd_reduce) {launches} "
+        f"(expected {(53 * HOST_STEPS,) * 2}); step {payload['step']}")
+    if launches != (53 * HOST_STEPS,) * 2 or payload["step"] != HOST_STEPS:
+        raise SystemExit(f"host stream phase ({tag}): launch count or step "
+                         "off the path")
+    return {"tensors": dict(_tensors(payload)), "steps_per_s": sps / 512,
+            "streams": streams, "launches": launches}
+
+
+def profile_host_stream_step(dev) -> None:
+    """One STiL step fed by two host streams (the next batches gathered,
+    copied and waited for inside the timed region) against one fed by
+    ``DeviceCache`` gathers, in turns on one state, on the host's clock;
+    then a host-stream step under the profiler: device busy and the
+    idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.data.loader import (VIRTUAL_CACHE_KEYS,
+                                            CyclingEpochView, CyclingSampler,
+                                            DeviceCache, EpochSampler,
+                                            HostStream)
+    from stil_tta_torch.train.optim import set_learning_rate
+    cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + [
+        "synthetic=false", f"data_base={HOST_DATA}"])
+    src = load_sources(cfg)
+    src_l, src_u = src["train_labelled"], src["train_unlabelled"]
+    algo = STiL(cfg, src_l.field_lengths, device=dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    step = algo.make_train_step()
+    marg = {k: torch.tensor(s.tabular, device=dev)
+            for k, s in (("l", src_l), ("u", src_u))}
+    il = torch.arange(64, dtype=torch.int32, device=dev)
+    iu = torch.arange(448, dtype=torch.int32, device=dev)
+    streams = (
+        HostStream(src_l, CyclingEpochView(CyclingSampler(len(src_l), 64,
+                                                          seed=1), 8),
+                   device=dev).epoch(),
+        HostStream(src_u, EpochSampler(len(src_u), 448, drop_last=True,
+                                       seed=0), device=dev).epoch())
+
+    def one():
+        bl, bu = next(streams[0]), next(streams[1])
+        vl = {k: bl[k] for k in VIRTUAL_CACHE_KEYS if k in bl}
+        vu = {k: bu[k] for k in VIRTUAL_CACHE_KEYS if k in bu}
+        vl["marginal"], vu["marginal"] = marg["l"], marg["u"]
+        step(state, vl, vu, il, iu, 1)
+
+    caches = (DeviceCache(src_l, device=dev).as_dict(),
+              DeviceCache(src_u, device=dev).as_dict())
+    gen = torch.Generator().manual_seed(0)
+    idx = (torch.randperm(len(src_l), generator=gen)[:64].to(dev),
+           torch.randperm(len(src_u), generator=gen)[:448].to(dev))
+
+    def cached():
+        step(state, *caches, *idx, 1)
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        for _ in range(2):
+            one()
+            cached()
+        torch.cuda.synchronize()
+        host, cache_ms = [], []
+        for _ in range(3):
+            host.append(timed(one))
+            cache_ms.append(timed(cached))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for s in streams:
+            s.close()
+    dev_time = lambda e: getattr(  # noqa: E731
+        e, "device_time_total", getattr(e, "cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    busy = sum(dev_time(e) for e in events) / 1e3
+    copies = sum(dev_time(e) for e in events if "Memcpy" in e.key) / 1e3
+    host_ms = sorted(host)[1]
+    log(f"[host-profile] a STiL step fed by the host streams: host clock "
+        f"{host_ms:.3f} ms (median of {', '.join(f'{t:.3f}' for t in host)};"
+        f" profiled {prof_ms:.3f} ms), fed by DeviceCache gathers in turns "
+        f"{sorted(cache_ms)[1]:.3f} ms (median of "
+        f"{', '.join(f'{t:.3f}' for t in cache_ms)}); device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / prof_ms:.1%} of the "
+        f"profiled step; host-to-device copies {copies:.3f} ms on the "
+        f"device")
+
+
+def host_stream_phase(dev) -> dict:
+    """Phase 19 (a): STiL trained from memmapped DVM-width splits through
+    the host stream against the ``DeviceCache`` path, from the same
+    files: launches, bitwise parameters (or the gap of two cache runs),
+    steps/s, the consumer's waits, queue occupancy, the native gather's
+    rate, the pinned pool, and a profiled host-stream step."""
+    import numpy as np
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data import native_loader
+    from stil_tta_torch.data.loader import GATHER_THREADS
+    t0 = time.perf_counter()
+    fl = load_config("config_dvm_STiL", ["dataset=synthetic_dvm"]
+                     ).field_lengths
+    sizes = write_host_splits(list(fl))
+    log(f"[host] splits written in {time.perf_counter() - t0:.1f} s: "
+        f"{HOST_UNLABELLED} unlabelled and {HOST_LABELLED} labelled rows of "
+        f"{IMG}x{IMG}x3 uint8, {len(fl)} tabular fields; "
+        f"{sum(sizes.values()) / 1e9:.3f} GB on disk {json.dumps(sizes)}")
+    # the gather's g++ build before any timed epoch, as the CUDA kernels
+    # are built before they are timed
+    t0 = time.perf_counter()
+    native_loader.load()
+    log(f"[host] native gather loaded in {time.perf_counter() - t0:.2f} s")
+    torch.backends.cudnn.deterministic = True
+    try:
+        # in turns, so that a drift of the host's speed falls on both paths
+        order = [host_stream_run(False, "cache_a"),
+                 host_stream_run(True, "host_a"),
+                 host_stream_run(False, "cache_b"),
+                 host_stream_run(True, "host_b")]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    runs = [order[0], order[2], order[1], order[3]]   # cache, cache, host, host
+
+    def gap(a, b) -> tuple:
+        """(tensors differing, largest |difference|) of two payloads."""
+        ta, tb = a["tensors"], b["tensors"]
+        if set(ta) != set(tb):
+            raise SystemExit("host stream phase: checkpoints differ in keys")
+        diff = [k for k in ta if not torch.equal(ta[k], tb[k])]
+        worst = max((float((ta[k].double() - tb[k].double()).abs().max())
+                     for k in diff if ta[k].is_floating_point()),
+                    default=0.0)
+        return len(diff), worst
+
+    n_cc, cc = gap(runs[0], runs[1])
+    log(f"[host] cache run against cache run: {n_cc} of "
+        f"{len(runs[0]['tensors'])} tensors differ, largest |diff| {cc:.3e} "
+        f"(the gate of the host runs: bitwise when the cache runs agree, "
+        f"else within their gap)")
+    for run in runs[2:]:
+        n_ch, ch = gap(runs[0], run)
+        log(f"[host] host stream against cache: {n_ch} differ, largest "
+            f"{ch:.3e}")
+        if (n_cc == 0 and n_ch) or ch > cc:
+            raise SystemExit("host stream and DeviceCache training disagree")
+    for tag, run in (("host_a", runs[2]), ("host_b", runs[3])):
+        for s, name in zip(run["streams"], ("labelled", "unlabelled")):
+            waits = np.asarray(s.waits_ms[:-1])   # the end marker left out
+            slot = sum(a[:1].nbytes for a in s.arrays.values()) + 4
+            rows = 64 if name == "labelled" else 448
+            log(f"[host] {tag} {name} stream: {len(waits)} batches, "
+                f"consumer wait first {waits[0]:.3f} ms, the rest summed "
+                f"{waits[1:].sum():.3f} ms, median {np.median(waits):.3f} "
+                f"ms, p90 {np.percentile(waits, 90):.3f} ms, max "
+                f"{waits.max():.3f} ms; mean queue occupancy "
+                f"{np.mean(s.occupancy[:-1]):.2f} of {s.depth}; native "
+                f"gather {s.gather_bytes / 1e9:.3f} GB in "
+                f"{s.gather_s * 1e3:.1f} ms = "
+                f"{s.gather_bytes / max(s.gather_s, 1e-9) / 1e9:.2f} GB/s on "
+                f"{GATHER_THREADS} threads a gather; pinned pool "
+                f"{s.pool_size} buffers of {rows * slot / 2**20:.2f} MiB")
+    log(f"[host] steps/s over the epoch (run order cache, host, cache, "
+        f"host): DeviceCache {runs[0]['steps_per_s']:.3f} and "
+        f"{runs[1]['steps_per_s']:.3f}, host stream "
+        f"{runs[2]['steps_per_s']:.3f} and {runs[3]['steps_per_s']:.3f}; "
+        f"host over cache in each turn "
+        f"{runs[2]['steps_per_s'] / runs[0]['steps_per_s']:.3f} and "
+        f"{runs[3]['steps_per_s'] / runs[1]['steps_per_s']:.3f}")
+    launches = dict(zip(("bn_stats", "bn_bwd_reduce"), runs[3]["launches"]))
+    del runs
+    profile_host_stream_step(dev)
+    shutil.rmtree(HOST_DATA, ignore_errors=True)
+    return {"stil_host_stream_train": launches}
+
+
+def zoo_step_profile(state, step, batch) -> dict:
+    """One step on the host's clock, then one under the profiler with
+    CUDA activity alone (phase 8's profile, without its ranges, which a
+    12,000-kernel step makes slow to read): host clock, device busy
+    (kernels), launches, ``bn_bwd_reduce`` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    step(state, *batch, 1)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *batch, 1)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_time = lambda e: getattr(  # noqa: E731
+        e, "device_time_total", getattr(e, "cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_ms": host_ms, "profiled_host_ms": prof_ms,
+            "busy_ms": sum(dev_time(e) for e in events) / 1e3,
+            "kernel_launches": sum(e.count for e in events),
+            "bn_bwd_reduce_kernels": sum(
+                e.count for e in events if "bn_bwd_reduce_kernel" in e.key)}
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 19 (b): each ResNet of the zoo at the DVM widths: one
+    bfloat16 STiL step at batch 512 with its launches (the net's BN
+    count of each kernel), then a timed and a profiled step (host clock,
+    device busy, peak memory), then phase 7's float32 step with
+    the kernels against the plain pair; the BN kernels at every (M, C)
+    the zoo adds to phase 3's list; each ViT's two STiL steps (no BN
+    kernel) and ``Predictor`` at 512. Every net's float32 step fits at
+    batch 512 on the 80 GB card."""
+    import numpy as np
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.ops.batch_norm import (bn_bwd_reduce,
+                                               bn_bwd_reduce_plain, bn_stats,
+                                               bn_stats_plain)
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.optim import set_learning_rate
+    gen = torch.Generator(device=dev).manual_seed(19)
+    base = set(resnet50_bn_shapes(dev)) | set(
+        resnet50_bn_shapes(dev, CARDIAC_BATCH))
+    new = sorted({s for n, _ in ZOO_RESNETS for s in zoo_bn_shapes(n)}
+                 - base)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, c in new:
+            x = (torch.randn(m, c, generator=gen, device=dev)
+                 + 0.5).to(dtype)
+            dy = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+            s, ss = bn_stats(x)
+            ps, pss = bn_stats_plain(x)
+            mean = torch.rand(c, generator=gen, device=dev)
+            inv = torch.rand(c, generator=gen, device=dev) + 0.5
+            g, gx = bn_bwd_reduce(x, dy, mean, inv)
+            pg, pgx = bn_bwd_reduce_plain(x, dy, mean, inv)
+            xhat = (x.float() - mean) * inv
+            rel = max(
+                float(((s - ps).abs() / x.float().abs().sum(0)).max()),
+                float(((ss - pss).abs() / pss).max()),
+                float(((g - pg).abs() / dy.float().abs().sum(0)).max()),
+                float(((gx - pgx).abs()
+                       / (dy.float() * xhat).abs().sum(0)).max()))
+            log(f"[zoo-kernel] {str(dtype)[6:]:8s} M={m:>9,d} C={c:>5d} "
+                f"both kernels vs plain, max rel err {rel:.2e} (tol {TOL:.0e})")
+            if rel >= TOL:
+                raise SystemExit(f"a BN kernel disagrees at the zoo's "
+                                 f"{(m, c, dtype)}")
+            del x, dy, xhat
+    by_path = {}
+    for name, n_bn in ZOO_RESNETS:
+        t0 = time.perf_counter()
+        cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + [
+            f"model={name}"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        algo, step, batch = step_setup(cfg, dev)
+        state = algo.init_state(0)
+        set_learning_rate(state.optimizer, STEP_LR)
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        step(state, *batch, 1)
+        torch.cuda.synchronize()
+        launches = (bn_stats.launches, bn_bwd_reduce.launches)
+        prof = zoo_step_profile(state, step, batch)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[zoo] {name}: launches a step (bn_stats, bn_bwd_reduce) "
+            f"{launches} (expected {(n_bn, n_bn)}); bf16 step at batch "
+            f"{BATCH}: host {prof['host_ms']:.3f} ms (profiled "
+            f"{prof['profiled_host_ms']:.3f} ms), device busy "
+            f"{prof['busy_ms']:.3f} ms, idle share "
+            f"{1 - prof['busy_ms'] / prof['host_ms']:.1%}, "
+            f"{prof['kernel_launches']} kernel launches, "
+            f"{prof['bn_bwd_reduce_kernels']} bn_bwd_reduce kernels; peak "
+            f"memory {peak / 2**30:.3f} GiB")
+        if launches != (n_bn, n_bn) \
+                or prof["bn_bwd_reduce_kernels"] != n_bn:
+            raise SystemExit(f"{name}: BN kernel launches off the path")
+        by_path[f"zoo_{name}_step"] = dict(zip(("bn_stats", "bn_bwd_reduce"),
+                                               launches))
+        del algo, step, batch, state
+        torch.cuda.empty_cache()
+        train_step_kernel_vs_plain(cfg, dev, per_step=n_bn)
+        log(f"[zoo] {name}: {time.perf_counter() - t0:.1f} s")
+    for name in ZOO_VITS:
+        t0 = time.perf_counter()
+        cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + [
+            f"model={name}"])
+        algo, step, batch = step_setup(cfg, dev)
+        state = algo.init_state(0)
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        host = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            step(state, *batch, 1)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t1) * 1e3)
+        launches = (bn_stats.launches, bn_bwd_reduce.launches)
+        loss = float(state.log_sums["loss"])
+        src = load_sources(cfg)["test"]
+        imgs, tabs = np.asarray(src.images), np.asarray(src.tabular)
+        pred = Predictor(algo, batch_size=BATCH)
+        pred(imgs[:BATCH], tabs[:BATCH])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probs = pred(imgs, tabs)
+        sps = len(imgs) / (time.perf_counter() - t1)
+        log(f"[zoo] {name}: two bf16 STiL steps at batch {BATCH}, host "
+            f"{host[0]:.1f} and {host[1]:.1f} ms, loss sum {loss:.4f}, BN "
+            f"kernel launches {launches}; Predictor at {BATCH}: "
+            f"{sps:.1f} samples/s over {len(imgs)} rows "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if launches != (0, 0) or not math.isfinite(loss) \
+                or not np.isfinite(probs).all() \
+                or np.abs(probs.sum(1) - 1).max() > 1e-3:
+            raise SystemExit(f"{name}: BN kernels launched or bad outputs")
+        del algo, step, batch, state, pred
+    return by_path
+
+
+def grouped_int8_phase(dev) -> dict:
+    """Phase 19 (c): the grouped int8 convolution bitwise equal to its
+    plain route at every grouped shape of ResNeXt-50 and -101 at batch
+    512, timed against bf16 cuDNN at ResNeXt-50's; ``Predictor(int8=True)``
+    and one ``teacher_int8`` step on ResNeXt-50."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.ops import quant_conv as qc
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.serve import Predictor
+    from stil_tta_torch.train.optim import set_learning_rate
+    gen = torch.Generator(device=dev).manual_seed(191)
+    buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    t0 = time.perf_counter()
+    for name in ("resnext50_32x4d", "resnext101_32x8d"):
+        for shape in sorted(set(grouped_conv_shapes(name))):
+            b, cin, h, w, cout, k, s, p, g = shape
+            x = torch.randn(b, cin, h, w, generator=gen, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            wt = torch.randn(cout, cin // g, k, k, generator=gen,
+                             device=dev) * math.sqrt(2.0 / (cout * k * k))
+            x_q, w_q, _, _ = qc.quantize(x, wt)
+            y = qc.int8_conv_card(x_q, w_q, s, p, g)
+            ok = torch.equal(y, qc.int8_conv_plain(x_q, w_q, s, p, g))
+            got = qc.quant_conv2d(x, wt, s, p, torch.bfloat16, g)
+            ok = ok and torch.equal(got, qc.quant_conv2d(
+                x, wt, s, p, torch.bfloat16, g)) and torch.equal(
+                got, qc.quant_conv2d_plain(x, wt, s, p, torch.bfloat16, g))
+            line = (f"[int8-grouped] {name} x{tuple(x.shape)} w"
+                    f"{tuple(wt.shape)} s{s} g{g}: bitwise {ok}")
+            if name == "resnext50_32x4d":
+                wb = wt.to(torch.bfloat16)
+                t_int8 = time_ms(lambda a: qc.quant_conv2d(
+                    a, wt, s, p, torch.bfloat16, g), x, buf, reps=10)
+                t_bf16 = time_ms(lambda a: torch.nn.functional.conv2d(
+                    a, wb, stride=s, padding=p, groups=g), x, buf, reps=10)
+                line += (f"; int8 route {t_int8:.4f} ms ({g} _int_mm), "
+                         f"bf16 cuDNN {t_bf16:.4f} ms")
+            log(line)
+            if not ok:
+                raise SystemExit(f"grouped int8 conv disagrees at {shape}")
+            del x, wt, x_q, w_q, y, got
+    del buf
+    log(f"[int8-grouped] shapes checked in {time.perf_counter() - t0:.1f} s")
+    # Predictor(int8=True) on ResNeXt-50 beside the bf16 one
+    cfg = load_config("config_dvm_STiL", TEST_OVERRIDES + [
+        "model=resnext50_32x4d"])
+    src = load_sources(cfg)["test"]
+    algo = STiL(cfg, src.field_lengths, device=dev)
+    algo.init_state(0)
+    imgs, tabs = np.asarray(src.images), np.asarray(src.tabular)
+    out = {}
+    for q in (False, True):
+        pred = Predictor(algo, batch_size=BATCH, int8=q)
+        pred(imgs[:BATCH], tabs[:BATCH])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out[q] = pred(imgs, tabs)
+        out[(q, "sps")] = len(imgs) / (time.perf_counter() - t1)
+    # one int8 serving batch under the profiler: every conv of the tower
+    # an integer GEMM, each group its own
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pred(imgs[:BATCH], tabs[:BATCH])
+        torch.cuda.synchronize()
+    serve_int_mm = sum(e.count for e in prof.key_averages()
+                       if e.key == "aten::_int_mm")
+    agree = float((out[True].argmax(1) == out[False].argmax(1)).mean())
+    log(f"[int8-grouped] ResNeXt-50 Predictor at {BATCH} over {len(imgs)} "
+        f"rows: int8 {out[(True, 'sps')]:.1f} samples/s, bf16 "
+        f"{out[(False, 'sps')]:.1f}; argmax agreement {agree:.4f} (bound "
+        f"{INT8_SERVE_AGREE}), largest probability difference "
+        f"{float(np.abs(out[True] - out[False]).max()):.3e}; one int8 "
+        f"serving batch: {serve_int_mm} aten::_int_mm calls (expected "
+        f"{RESNEXT50_INT_MM})")
+    if not np.isfinite(out[True]).all() \
+            or np.abs(out[True].sum(1) - 1).max() > 1e-3 \
+            or serve_int_mm != RESNEXT50_INT_MM or agree <= INT8_SERVE_AGREE:
+        raise SystemExit("ResNeXt-50 int8 serving: bad probabilities, an "
+                         "argmax agreement at or under the bound, or its "
+                         "convs not the integer GEMMs")
+    images = torch.as_tensor(imgs[:BATCH], device=dev)
+    tabular = torch.as_tensor(np.asarray(tabs[:BATCH], np.float32),
+                              device=dev)
+    int8_forward_phase(algo, images, tabular, RESNEXT50_INT_MM)
+    del algo, pred, images, tabular
+    # one teacher_int8 step on ResNeXt-50, its teacher's GEMMs counted
+    cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + [
+        "model=resnext50_32x4d", "teacher_int8=true"])
+    algo, step, batch = step_setup(cfg, dev)
+    state = algo.init_state(0)
+    set_learning_rate(state.optimizer, STEP_LR)
+    step(state, *batch, 1)
+    torch.cuda.synchronize()
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t1 = time.perf_counter()
+        step(state, *batch, 1)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t1) * 1e3
+    int_mm = sum(e.count for e in prof.key_averages()
+                 if e.key == "aten::_int_mm")
+    launches = (bn_stats.launches, bn_bwd_reduce.launches)
+    loss = float(state.log_sums["loss"])
+    log(f"[int8-grouped] ResNeXt-50 teacher_int8 step: {int_mm} "
+        f"aten::_int_mm calls (expected {RESNEXT50_INT_MM}: 37 convs and "
+        f"16 x 32 groups), BN launches {launches} (expected (53, 53)), "
+        f"host {host:.1f} ms (profiled), loss sum {loss:.4f}")
+    if int_mm != RESNEXT50_INT_MM or launches != (53, 53) \
+            or not math.isfinite(loss):
+        raise SystemExit("ResNeXt-50 teacher_int8 step off the path")
+    del algo, step, batch, state
+    return {"resnext50_int8_teacher_step": dict(
+        zip(("bn_stats", "bn_bwd_reduce"), launches))}
 
 
 def main() -> int:
@@ -2032,6 +2646,14 @@ def main() -> int:
     # ---- 18. data parallelism
     by_path.update(data_parallel_phase())
     clock.lap("18 data parallel")
+
+    # ---- 19. the host stream, the encoder zoo, grouped int8
+    by_path.update(host_stream_phase(dev))
+    clock.lap("19 (a) host stream")
+    by_path.update(zoo_phase(dev))
+    clock.lap("19 (b) encoder zoo")
+    by_path.update(grouped_int8_phase(dev))
+    clock.lap("19 (c) grouped int8")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

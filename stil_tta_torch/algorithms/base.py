@@ -107,7 +107,9 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     kaiming-normal (fan_out, ReLU), dense layers truncated-normal with
     std sqrt(1/fan_in) (SAINT's stacked per-column MLPs too), embeddings
     and tokens truncated-normal std 0.02, biases zero, BatchNorm scale 1 /
-    shift 0. ``generator`` lives on the weights' device."""
+    shift 0; a ViT's patch embedding truncated-normal std
+    sqrt(1/fan_in) with a zero bias, its position embedding std 0.02.
+    ``generator`` lives on the weights' device."""
     def normal_(t: Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator,
                             device=t.device).clamp_(-2.0, 2.0) * std)
@@ -118,6 +120,9 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
             mod.weight.copy_(torch.randn(
                 mod.weight.shape, generator=generator,
                 device=mod.weight.device) * math.sqrt(2.0 / (cout * kh * kw)))
+        elif isinstance(mod, nn.Conv2d):     # ViT's patch_embed
+            normal_(mod.weight, math.sqrt(1.0 / mod.weight[0].numel()))
+            mod.bias.zero_()
         elif isinstance(mod, nn.Linear):
             normal_(mod.weight, math.sqrt(1.0 / mod.in_features))
             if mod.bias is not None:
@@ -130,7 +135,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
             mod.con_mlp_b1.zero_()
             mod.con_mlp_b2.zero_()
     for name, p in net.named_parameters():
-        if name.endswith(("cls_token", "mask_special_token")):
+        if name.endswith(("cls_token", "mask_special_token", "pos_embed")):
             normal_(p, 0.02)
 
 

@@ -58,10 +58,11 @@ class ImagingNet(nn.Module):
 
     def __init__(self, encoder: str, num_classes: int,
                  projection_dim: int = 128,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         width = EMBEDDING_DIM[encoder]
-        self.backbone = image_encoder(encoder, dtype=dtype)
+        self.backbone = image_encoder(encoder, dtype=dtype,
+                                      img_size=img_size)
         self.head_dtype = acc_dtype(dtype)
         self.classifier = Linear(width, num_classes, dtype=self.head_dtype)
         self.head = nn.Sequential(Linear(width, width, dtype=dtype),
@@ -85,14 +86,15 @@ class MatchMultimodalNet(nn.Module):
                  tabular_embedding_dim: int = 512,
                  multimodal_embedding_dim: int = 512,
                  tabular_num_layers: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         self.model = MatchBackbone(
             encoder, field_lengths, num_classes,
             projection_dim=projection_dim,
             tabular_embedding_dim=tabular_embedding_dim,
             multimodal_embedding_dim=multimodal_embedding_dim,
-            tabular_num_layers=tabular_num_layers, dtype=dtype)
+            tabular_num_layers=tabular_num_layers, dtype=dtype,
+            img_size=img_size)
 
     def forward(self, image: Tensor, tabular: Tensor
                 ) -> Tuple[Tensor, Tensor]:
@@ -193,10 +195,10 @@ class MatchBase:
                 tabular_embedding_dim=int(cfg.tabular_embedding_dim),
                 multimodal_embedding_dim=int(cfg.multimodal_embedding_dim),
                 tabular_num_layers=int(cfg.tabular_transformer_num_layers),
-                dtype=dtype)
+                dtype=dtype, img_size=int(cfg.img_size))
         return ImagingNet(cfg.model, self.num_classes,
                           projection_dim=int(cfg.projection_dim),
-                          dtype=dtype)
+                          dtype=dtype, img_size=int(cfg.img_size))
 
     def uses_ema(self) -> bool:
         return False

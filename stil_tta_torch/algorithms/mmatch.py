@@ -56,7 +56,7 @@ class SemiMultimodalNet(nn.Module):
                  tabular_num_layers: int = 4,
                  tabular_encoder: str = "transformer",
                  saint_ff_dropout: float = 0.8,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         self.model = SemiMultimodalBackbone(
             encoder, field_lengths, num_classes,
@@ -65,7 +65,8 @@ class SemiMultimodalNet(nn.Module):
             multimodal_embedding_dim=multimodal_embedding_dim,
             tabular_num_layers=tabular_num_layers,
             tabular_encoder=tabular_encoder,
-            saint_ff_dropout=saint_ff_dropout, dtype=dtype)
+            saint_ff_dropout=saint_ff_dropout, dtype=dtype,
+            img_size=img_size)
 
     def forward(self, image: Tensor, tabular: Tensor):
         return self.model(image, tabular)
@@ -97,7 +98,7 @@ class MMatch(MatchBase):
             tabular_encoder=self.tabular_encoder,
             saint_ff_dropout=(0.8 if cfg.saint_ff_dropout is None
                               else float(cfg.saint_ff_dropout)),
-            dtype=dtype)
+            dtype=dtype, img_size=int(cfg.img_size))
 
     def extra_state(self) -> Dict[str, object]:
         """The memory bank (``mmatch.py:87-95``): unit-column normal

@@ -75,7 +75,7 @@ class STiLNet(nn.Module):
                  tabular_encoder: str = "transformer",
                  saint_ff_dropout: float = 0.8,
                  teacher_int8: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         hid = multimodal_embedding_dim
         # the int8 image tower in the teacher's forward only
@@ -89,7 +89,8 @@ class STiLNet(nn.Module):
             multimodal_num_layers=multimodal_num_layers,
             embedding_dropout=embedding_dropout, drop_rate=drop_rate,
             tabular_encoder=tabular_encoder,
-            saint_ff_dropout=saint_ff_dropout, dtype=dtype)
+            saint_ff_dropout=saint_ff_dropout, dtype=dtype,
+            img_size=img_size)
         self.projector_multimodal = SimCLRProjectionHead(
             hid * 3, hid * 3, projection_dim, dtype)
         if target == "dvm":
@@ -208,7 +209,8 @@ class STiL:
             tabular_encoder=self.tabular_encoder,
             saint_ff_dropout=(0.8 if cfg.saint_ff_dropout is None
                               else float(cfg.saint_ff_dropout)),
-            teacher_int8=bool(cfg.teacher_int8), dtype=dtype)
+            teacher_int8=bool(cfg.teacher_int8), dtype=dtype,
+            img_size=int(cfg.img_size))
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
 

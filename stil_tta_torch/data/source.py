@@ -64,6 +64,26 @@ class ArraySource:
             self, images=self.images[:n], tabular=self.tabular[:n],
             labels=self.labels[:n], labelled=self.labelled[:n])
 
+    def save(self, directory: os.PathLike) -> None:
+        """Write the split as an artifact directory that :meth:`load`
+        reads (images memmapped)."""
+        d = Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        np.save(d / "images.npy", np.asarray(self.images))
+        np.save(d / "tabular.npy", np.asarray(self.tabular, np.float32))
+        np.save(d / "labels.npy", np.asarray(self.labels, np.int64))
+        np.save(d / "labelled.npy", np.asarray(self.labelled, bool))
+        if self.missing is not None:
+            np.save(d / "missing.npy", np.asarray(self.missing, bool))
+        with open(d / "spec.json", "w") as f:
+            json.dump({
+                "field_lengths": [int(x) for x in self.field_lengths],
+                "num_classes": int(self.num_classes),
+                "target": self.target,
+                "image_shape": list(self.images.shape[1:]),
+                "image_dtype": str(np.asarray(self.images).dtype),
+            }, f, indent=2)
+
     @classmethod
     def load(cls, directory: os.PathLike, mmap: bool = True) -> "ArraySource":
         d = Path(directory)

@@ -11,7 +11,10 @@ SAINT with ``tabular_encoder="saint"``), the si/ai/st/at disentangle
 projections, shared-feature reduction, MITransformer fusion, and three
 classifiers (multimodal / imaging / tabular) computing in at least
 float32. Images are NHWC; tabular rows are (B, ncat+ncon) float with the
-categorical columns first.
+categorical columns first. Every backbone takes any name of the encoder
+zoo (``models/resnet.py:image_encoder``): with a ViT the stage-4 tokens
+are its patch grid, the pooled features its [CLS] embedding, and
+``int8_image`` is ignored, as in JAX (``backbones.py:109``).
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ class DisCoBackbone(nn.Module):
                  embedding_dropout: float = 0.0, drop_rate: float = 0.0,
                  tabular_encoder: str = "transformer",
                  saint_ff_dropout: float = 0.8,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         cat_lengths, con_lengths = split_field_lengths(field_lengths)
         self.encoder_imaging = image_encoder(
-            model, return_all_feature_maps=True, dtype=dtype)
+            model, return_all_feature_maps=True, dtype=dtype,
+            img_size=img_size)
         self.saint = tabular_encoder == "saint"
         if self.saint:
             self.encoder_tabular = SAINTEncoder(
@@ -154,10 +158,11 @@ class SemiMultimodalBackbone(nn.Module):
                  tabular_num_layers: int = 4, embedding_dropout: float = 0.0,
                  drop_rate: float = 0.0, tabular_encoder: str = "transformer",
                  saint_ff_dropout: float = 0.8,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         cat_lengths, con_lengths = split_field_lengths(field_lengths)
-        self.encoder_imaging = image_encoder(model, dtype=dtype)
+        self.encoder_imaging = image_encoder(model, dtype=dtype,
+                                             img_size=img_size)
         if tabular_encoder == "saint":
             self.encoder_tabular = SAINTEncoder(
                 cat_lengths, len(con_lengths), token_dim=32, depth=1,
@@ -225,10 +230,11 @@ class MatchBackbone(nn.Module):
                  multimodal_embedding_dim: int = 512,
                  tabular_num_layers: int = 4, embedding_dropout: float = 0.0,
                  drop_rate: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, img_size: int = 128):
         super().__init__()
         cat_lengths, con_lengths = split_field_lengths(field_lengths)
-        self.encoder_imaging = image_encoder(model, dtype=dtype)
+        self.encoder_imaging = image_encoder(model, dtype=dtype,
+                                             img_size=img_size)
         self.encoder_tabular = TabularTransformerEncoder(
             cat_lengths, con_lengths, embedding_dim=tabular_embedding_dim,
             num_layers=tabular_num_layers,

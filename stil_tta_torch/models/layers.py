@@ -112,17 +112,26 @@ def merge_heads(x: Tensor) -> Tensor:
 def scaled_attention(q: Tensor, k: Tensor, v: Tensor, scale: float,
                      mask: Optional[Tensor] = None,
                      dropout_rate: float = 0.0,
-                     training: bool = False) -> Tensor:
+                     training: bool = False, return_attn: bool = False,
+                     attn_probe: Optional[Tensor] = None):
     """Softmax attention with an additive mask (``Transformer.py:72-85``):
     scores and softmax in at least float32, the weighted sum in ``v``'s
-    dtype with a float32 accumulator."""
+    dtype with a float32 accumulator. ``return_attn`` also returns the
+    post-softmax map (before dropout). ``attn_probe``, a tensor of the
+    map's shape, is added to the map after the softmax (no dropout
+    then), so the gradient with respect to a zero probe is the gradient
+    with respect to the map."""
     acc = acc_dtype(v.dtype)
     attn = (q.to(acc) @ k.to(acc).transpose(-1, -2)) * scale
     if mask is not None:
         attn = attn + mask
     attn = torch.softmax(attn, dim=-1)
-    attn = dropout(attn, dropout_rate, training)
-    return attn.to(v.dtype) @ v
+    if attn_probe is None:
+        weights = dropout(attn, dropout_rate, training)
+    else:
+        attn = weights = attn + attn_probe
+    out = weights.to(v.dtype) @ v
+    return (out, attn) if return_attn else out
 
 
 class Mlp(nn.Module):
@@ -143,7 +152,10 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Self-attention (``Transformer.py:36-92``)."""
+    """Self-attention (``Transformer.py:36-92``). ``return_attn`` and
+    ``attn_probe`` are :func:`scaled_attention`'s; the probe stands for
+    the reference's ``save_attn_gradients`` hook
+    (``Transformer.py:51-55``)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -156,35 +168,91 @@ class Attention(nn.Module):
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
 
-    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None,
+                return_attn: bool = False,
+                attn_probe: Optional[Tensor] = None):
         q, k, v = (split_heads(t, self.num_heads)
                    for t in self.qkv(x).chunk(3, dim=-1))
-        out = scaled_attention(q, k, v, self.scale, mask, self.attn_drop,
-                               self.training)
-        return dropout(self.proj(merge_heads(out)), self.proj_drop,
-                       self.training)
+        out, attn = scaled_attention(q, k, v, self.scale, mask,
+                                     self.attn_drop, self.training, True,
+                                     attn_probe)
+        out = dropout(self.proj(merge_heads(out)), self.proj_drop,
+                      self.training)
+        return (out, attn) if return_attn else out
+
+
+class CrossAttention(nn.Module):
+    """Queries attend over encoder states (``Transformer.py:95-142``):
+    ``kv_proj`` (bias as ``qkv_bias``) on the states, ``q_proj`` and
+    ``proj`` with bias, both at the states' width ``k_dim``."""
+
+    def __init__(self, q_dim: int, k_dim: int, num_heads: int = 8,
+                 qkv_bias: bool = False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (k_dim // num_heads) ** -0.5
+        self.kv_proj = Linear(k_dim, k_dim * 2, bias=qkv_bias, dtype=dtype)
+        self.q_proj = Linear(q_dim, k_dim, dtype=dtype)
+        self.proj = Linear(k_dim, k_dim, dtype=dtype)
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
+
+    def forward(self, q_in: Tensor, k_in: Tensor,
+                return_attn: bool = False):
+        k, v = (split_heads(t, self.num_heads)
+                for t in self.kv_proj(k_in).chunk(2, dim=-1))
+        q = split_heads(self.q_proj(q_in), self.num_heads)
+        out, attn = scaled_attention(q, k, v, self.scale, None,
+                                     self.attn_drop, self.training, True)
+        out = dropout(self.proj(merge_heads(out)), self.proj_drop,
+                      self.training)
+        return (out, attn) if return_attn else out
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block (``Transformer.py:145-183``)."""
+    """Pre-norm transformer block (``Transformer.py:145-183``); with
+    ``is_cross_attention`` a ``cross_norm`` and a :class:`CrossAttention`
+    over ``encoder_hidden_states`` sit between the self-attention and
+    the MLP. ``return_attn`` and ``attn_probe`` are the self-attention's
+    (:class:`Attention`)."""
 
     def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 is_cross_attention: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop,
                               dtype)
+        if is_cross_attention:
+            self.cross_norm = LayerNorm(dim, dtype)
+            self.cross_attn = CrossAttention(dim, dim, num_heads, qkv_bias,
+                                             attn_drop, drop, dtype)
+        self.is_cross_attention = is_cross_attention
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, dtype=dtype)
         self.drop_path = drop_path
 
-    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        x = x + drop_path(self.attn(self.norm1(x), mask), self.drop_path,
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None,
+                encoder_hidden_states: Optional[Tensor] = None,
+                return_attn: bool = False,
+                attn_probe: Optional[Tensor] = None):
+        out = self.attn(self.norm1(x), mask, return_attn, attn_probe)
+        if return_attn:
+            out, attn = out
+        x = x + drop_path(out, self.drop_path, self.training)
+        if self.is_cross_attention:
+            if encoder_hidden_states is None:
+                raise ValueError("a cross-attention Block needs "
+                                 "encoder_hidden_states")
+            x = x + drop_path(self.cross_attn(self.cross_norm(x),
+                                              encoder_hidden_states),
+                              self.drop_path, self.training)
+        x = x + drop_path(self.mlp(self.norm2(x)), self.drop_path,
                           self.training)
-        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path,
-                             self.training)
+        return (x, attn) if return_attn else x
 
 
 class MLPHead(nn.Module):

@@ -1,9 +1,12 @@
-"""ResNet image tower (the part of ``stil_tta_tpu/models/resnet.py`` the
-port uses).
+"""ResNet image tower and the encoder zoo, the port of
+``stil_tta_tpu/models/resnet.py``.
 
 torchvision-style ResNet: conv1 7x7/2, BN, ReLU, maxpool 3x3/2, four stages
 of :class:`BasicBlock` / :class:`Bottleneck` (v1.5: stride on the 3x3
-conv). The JAX package's space-to-depth stem is exact math for the 7x7/s2/p3
+conv; ``groups`` and ``width_per_group`` give ResNeXt and the wide nets a
+grouped or wider 3x3 conv). :func:`image_encoder` resolves the nine
+ResNets of the JAX package and, through ``models/vit.py``, ``vit_small``
+and ``vit_base``. The JAX package's space-to-depth stem is exact math for the 7x7/s2/p3
 conv, so a plain conv ports it; its TPU layout lanes (channel padding,
 1x1-as-dot, remat, fp8 residuals, custom maxpool) are not ported.
 
@@ -36,23 +39,35 @@ from torch import nn
 from stil_tta_torch.ops.batch_norm import BatchNorm2d
 from stil_tta_torch.ops.quant_conv import quant_conv2d
 
-EMBEDDING_DIM = {"resnet18": 512, "resnet50": 2048}
+EMBEDDING_DIM = {  # pooled width of each encoder (``STiLModel.py:37``)
+    "resnet18": 512,
+    "resnet34": 512,
+    "resnet50": 2048,
+    "resnet101": 2048,
+    "resnet152": 2048,
+    "resnext50_32x4d": 2048,
+    "resnext101_32x8d": 2048,
+    "wide_resnet50_2": 2048,
+    "wide_resnet101_2": 2048,
+    "vit_small": 384,
+    "vit_base": 768,
+}
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv whose float32 weight is cast to the input's dtype;
-    ``int8=True`` quantizes it (``QuantConv``: the same ``weight``, out
-    in the input's dtype)."""
+    """Bias-free conv (grouped with ``groups`` > 1) whose float32 weight
+    is cast to the input's dtype; ``int8=True`` quantizes it
+    (``QuantConv``: the same ``weight``, out in the input's dtype)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0):
+                 padding: int = 0, groups: int = 1):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=False)
+                         groups=groups, bias=False)
 
     def forward(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         if int8:
             return quant_conv2d(x, self.weight, self.stride[0],
-                                self.padding[0], x.dtype)
+                                self.padding[0], x.dtype, self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
@@ -69,13 +84,18 @@ def _identity(block: nn.Module, x: torch.Tensor, q: bool) -> torch.Tensor:
 
 
 class BasicBlock(nn.Module):
-    """``resnets.py:50-88``."""
+    """``resnets.py:50-88``; ``groups`` and ``base_width`` must stay 1 and
+    64 (``ValueError`` otherwise, as in JAX and torchvision)."""
 
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, groups: int = 1,
+                 base_width: int = 64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError(
+                "BasicBlock only supports groups=1 and base_width=64")
         self.conv1 = Conv2d(inplanes, planes, 3, stride, 1)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, 1, 1)
@@ -91,19 +111,23 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """``resnets.py:91-132`` (torchvision v1.5)."""
+    """``resnets.py:91-132`` (torchvision v1.5): the middle width is
+    ``int(planes * base_width / 64) * groups``, its 3x3 conv in
+    ``groups`` groups."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, groups: int = 1,
+                 base_width: int = 64):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = Conv2d(inplanes, planes, 1)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride, 1)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = Conv2d(planes, out, 1)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2d(inplanes, width, 1)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, groups)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = Conv2d(width, out, 1)
         self.bn3 = BatchNorm2d(out)
         self.downsample = (_downsample(inplanes, out, stride)
                            if downsample else None)
@@ -124,7 +148,8 @@ class ResNet(nn.Module):
 
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
                  return_all_feature_maps: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
         self.return_all_feature_maps = return_all_feature_maps
         self.dtype = dtype
@@ -139,7 +164,8 @@ class ResNet(nn.Module):
                 s = stride if b == 0 else 1
                 ds = b == 0 and (s != 1
                                  or inplanes != planes * block.expansion)
-                mods.append(block(inplanes, planes, s, ds))
+                mods.append(block(inplanes, planes, s, ds, groups,
+                                  width_per_group))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*mods))
 
@@ -164,19 +190,64 @@ def resnet18(**kw) -> ResNet:
     return ResNet(BasicBlock, (2, 2, 2, 2), **kw)
 
 
+def resnet34(**kw) -> ResNet:
+    return ResNet(BasicBlock, (3, 4, 6, 3), **kw)
+
+
 def resnet50(**kw) -> ResNet:
     return ResNet(Bottleneck, (3, 4, 6, 3), **kw)
 
 
-_ENCODERS = {"resnet18": resnet18, "resnet50": resnet50}
+def resnet101(**kw) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), **kw)
+
+
+def resnet152(**kw) -> ResNet:
+    return ResNet(Bottleneck, (3, 8, 36, 3), **kw)
+
+
+def resnext50_32x4d(**kw) -> ResNet:
+    """``resnets.py:344-352``."""
+    return ResNet(Bottleneck, (3, 4, 6, 3), groups=32, width_per_group=4,
+                  **kw)
+
+
+def resnext101_32x8d(**kw) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), groups=32, width_per_group=8,
+                  **kw)
+
+
+def wide_resnet50_2(**kw) -> ResNet:
+    """``resnets.py:356-371`` (width_per_group doubled)."""
+    return ResNet(Bottleneck, (3, 4, 6, 3), width_per_group=128, **kw)
+
+
+def wide_resnet101_2(**kw) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), width_per_group=128, **kw)
+
+
+_ENCODERS = {f.__name__: f for f in (
+    resnet18, resnet34, resnet50, resnet101, resnet152, resnext50_32x4d,
+    resnext101_32x8d, wide_resnet50_2, wide_resnet101_2)}
 
 
 def image_encoder(name: str, return_all_feature_maps: bool = False,
-                  dtype: torch.dtype = torch.bfloat16) -> ResNet:
-    """``torchvision_ssl_encoder`` equivalent: encoder with no fc head."""
+                  dtype: torch.dtype = torch.bfloat16,
+                  img_size: int = 128) -> nn.Module:
+    """``torchvision_ssl_encoder`` equivalent: the encoder with no fc head.
+    ``vit_*`` names go to ``models/vit.py`` (patch size 16: the JAX
+    package passes none, so a model YAML's ``patch_size`` is unread;
+    ``img_size`` sizes its position embedding, the ResNets ignore it);
+    an unknown name raises ``ValueError``, as in JAX."""
+    if name.startswith("vit"):
+        from stil_tta_torch.models import vit
+        ctor = {"vit_small": vit.vit_small, "vit_base": vit.vit_base}
+        if name not in ctor:
+            raise ValueError(f"Unknown ViT variant '{name}'")
+        return ctor[name](return_all_feature_maps=return_all_feature_maps,
+                          img_size=img_size, dtype=dtype)
     if name not in _ENCODERS:
-        raise NotImplementedError(
-            f"image encoder {name!r} is not ported yet (ported: "
-            f"{sorted(_ENCODERS)}; see ROADMAP.md)")
+        raise ValueError(f"Unknown image encoder '{name}'. Available: "
+                         f"{sorted(_ENCODERS)}")
     return _ENCODERS[name](return_all_feature_maps=return_all_feature_maps,
                            dtype=dtype)

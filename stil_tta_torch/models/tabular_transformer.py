@@ -1,11 +1,17 @@
-"""BERT-style tabular transformer encoder (the part of
-``stil_tta_tpu/models/tabular_transformer.py`` the test-time path uses).
+"""BERT-style tabular transformer encoder and TIP's two other modules,
+the port of ``stil_tta_tpu/models/tabular_transformer.py``.
 
-Per-categorical-value embedding with cumulative offsets, a Linear(1, d)
-embedding per continuous value, CLS token, learned column embedding, N
-pre-norm self-attention blocks, and additive -1e9 masking of missing
-columns (``Transformer.py:186-278``). Rows are (B, ncat+ncon) float with
-the categorical columns first.
+:class:`TabularTransformerEncoder`: per-categorical-value embedding with
+cumulative offsets, a Linear(1, d) embedding per continuous value, CLS
+token, learned column embedding, N pre-norm self-attention blocks, and
+additive -1e9 masking of missing columns (``Transformer.py:186-278``);
+``return_attn`` also returns each block's attention map and
+``attn_probes`` adds a probe to each (``utils/profiling.py``). Rows are
+(B, ncat+ncon) float with the categorical columns first.
+:class:`MultimodalTransformerEncoder` (tabular tokens cross-attending
+over image features) and :class:`TabularPredictor` (the masked
+reconstruction head) are TIP's; no algorithm uses them, and they load
+TIP checkpoints.
 """
 
 from __future__ import annotations
@@ -89,11 +95,75 @@ class TabularTransformerEncoder(nn.Module):
         tokens = self.norm(tokens)
         return dropout(tokens, self.embedding_dropout, self.training)
 
-    def forward(self, x: Tensor, missing_mask: Optional[Tensor] = None
-                ) -> Tensor:
+    def forward(self, x: Tensor, missing_mask: Optional[Tensor] = None,
+                return_attn: bool = False,
+                attn_probes: Optional[Sequence[Tensor]] = None):
+        """Tokens (B, F+1, d); with ``return_attn`` also the list of each
+        block's (B, 8, F+1, F+1) attention map."""
         tokens = self.embed(x)
         mask = (None if missing_mask is None
                 else build_attention_mask(missing_mask))
+        maps = []
+        for i, block in enumerate(self.transformer_blocks):
+            tokens = block(tokens, mask, return_attn=return_attn,
+                           attn_probe=(None if attn_probes is None
+                                       else attn_probes[i]))
+            if return_attn:
+                tokens, attn = tokens
+                maps.append(attn)
+        return (tokens, maps) if return_attn else tokens
+
+
+class MultimodalTransformerEncoder(nn.Module):
+    """TIP's cross-attention multimodal encoder (``Transformer.py:281-327``):
+    image features ((B, N, C), or a (B, H, W, C) map taken as H·W tokens)
+    through ``image_proj`` and ``image_norm``; the tabular tokens through
+    ``tabular_proj`` when their width differs; ``num_layers``
+    cross-attention blocks; ``norm``."""
+
+    def __init__(self, embedding_dim: int = 2048,
+                 multimodal_embedding_dim: int = 512,
+                 tabular_embedding_dim: int = 512, num_layers: int = 4,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        d = multimodal_embedding_dim
+        self.image_proj = Linear(embedding_dim, d, dtype=dtype)
+        self.image_norm = LayerNorm(d, dtype)
+        self.tabular_proj = (Linear(tabular_embedding_dim, d, dtype=dtype)
+                             if tabular_embedding_dim != d else None)
+        self.transformer_blocks = nn.ModuleList(
+            Block(d, num_heads=8, dtype=dtype, is_cross_attention=True)
+            for _ in range(num_layers))
+        self.norm = LayerNorm(d, dtype)
+
+    def forward(self, x: Tensor, image_features: Tensor) -> Tensor:
+        if image_features.dim() == 4:
+            b, h, w, c = image_features.shape
+            image_features = image_features.reshape(b, h * w, c)
+        img = self.image_norm(self.image_proj(image_features))
+        if self.tabular_proj is not None:
+            x = self.tabular_proj(x)
         for block in self.transformer_blocks:
-            tokens = block(tokens, mask)
-        return tokens
+            x = block(x, encoder_hidden_states=img)
+        return self.norm(x)
+
+
+class TabularPredictor(nn.Module):
+    """TIP's masked tabular reconstruction head (``Transformer.py:331-364``):
+    over the tokens after CLS, a classifier over every categorical value
+    on the categorical tokens and a regressor on the continuous ones,
+    both in float32 (as in JAX). Returns ``(cat_out, con_out)``."""
+
+    def __init__(self, cat_lengths: Sequence[int],
+                 con_lengths: Sequence[int], embedding_dim: int = 512):
+        super().__init__()
+        self.num_cat = len(cat_lengths)
+        self.cat_classifier = Linear(embedding_dim,
+                                     int(sum(int(n) for n in cat_lengths)),
+                                     dtype=torch.float32)
+        self.con_regressor = Linear(embedding_dim, 1, dtype=torch.float32)
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        x = x[:, 1:]
+        return (self.cat_classifier(x[:, :self.num_cat]),
+                self.con_regressor(x[:, self.num_cat:]))

@@ -30,7 +30,13 @@ Two routes for the s32 convolution, chosen by the device of ``x``:
   K and N are padded with zeros to multiples of 8 and M to 17 rows where
   ``_int_mm`` asks for it (the 7x7 stem's K = 147 becomes 152); the
   padding adds zeros to the sums. A failure of the GEMM raises: there is
-  no fallback to a float convolution.
+  no fallback to a float convolution. Every conv has ``groups`` g (g > 1
+  for ResNeXt's 3x3 convs; JAX's ``feature_group_count``, 1 elsewhere):
+  the im2col has shape (g, M, Kg) with each group's K contiguous and
+  padded on its own, and one ``_int_mm`` a group writes into one s32
+  buffer: g launches a conv (32 for every grouped conv of the zoo, 1 for
+  an ungrouped one). At ResNeXt-50's layer1 a group has K = 36 and N = 4,
+  padded to 40 and 8.
 
 The JAX package leaves this convolution to XLA (no Pallas kernel), so
 the card route is a library GEMM, not a hand kernel.
@@ -59,8 +65,8 @@ def _q127(device: torch.device, dtype: torch.dtype) -> Tensor:
 
 def quantize(x: Tensor, weight: Tensor
              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """``(x_q, w_q, s_x, s_w)``: x (B, Cin, H, W) and weight (Cout, Cin,
-    kh, kw) as int8 in their own memory formats, the 0-d activation scale
+    """``(x_q, w_q, s_x, s_w)``: x (B, Cin, H, W) and weight (Cout,
+    Cin / groups, kh, kw) as int8 in their own memory formats, the 0-d activation scale
     and the (Cout,) weight scales."""
     cdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     q127 = _q127(x.device, cdt)
@@ -87,11 +93,11 @@ def dequantize(y: Tensor, s_x: Tensor, s_w: Tensor,
 
 
 def int8_conv_plain(x_q: Tensor, w_q: Tensor, stride: int,
-                    padding: int) -> Tensor:
+                    padding: int, groups: int = 1) -> Tensor:
     """The s32 sums by a float64 ``F.conv2d`` of the int8 values (exact,
     see the module's docstring), on any device."""
     y = F.conv2d(x_q.to(torch.float64), w_q.to(torch.float64),
-                 stride=stride, padding=padding)
+                 stride=stride, padding=padding, groups=groups)
     return y.to(torch.int32)
 
 
@@ -99,80 +105,95 @@ def _up(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
-def im2col(x_q: Tensor, kh: int, kw: int, stride: int, padding: int
-           ) -> Tuple[Tensor, Tuple[int, int, int]]:
-    """The (M, Kp) int8 rows of the convolution's GEMM, M = B·Ho·Wo
-    (padded to at least 17 rows) and Kp = kh·kw·Cin padded to a multiple
-    of 8, the columns in (kh, kw, cin) order; and (B, Ho, Wo). A 1x1
-    stride-1 conv of a channels-last tensor is a view."""
+def im2col(x_q: Tensor, kh: int, kw: int, stride: int, padding: int,
+           groups: int = 1) -> Tuple[Tensor, Tuple[int, int, int]]:
+    """The (g, Mp, Kp) int8 rows of the convolution's GEMMs, one (Mp, Kp)
+    block a group, each contiguous: M = B·Ho·Wo padded to at least 17
+    rows, Kp = kh·kw·Cin / g padded to a multiple of 8, the columns in
+    (kh, kw, cin) order over the group's channels; and (B, Ho, Wo). An
+    ungrouped 1x1 stride-1 conv of a channels-last tensor is a view."""
     b, c, h, w = x_q.shape
+    cg = c // groups
     xn = x_q.permute(0, 2, 3, 1)                     # NHWC
     if padding:
         xn = F.pad(xn, (0, 0, padding, padding, padding, padding))
     ho = (h + 2 * padding - kh) // stride + 1
     wo = (w + 2 * padding - kw) // stride + 1
-    k, m = kh * kw * c, b * ho * wo
+    k, m = kh * kw * cg, b * ho * wo
     kp, mp = _up(k, 8), max(m, 17)
     if kh == kw == 1:
         src = xn[:, ::stride, ::stride, :][:, :ho, :wo, :]
-        if kp == k and mp == m and src.is_contiguous():
-            return src.reshape(m, k), (b, ho, wo)
+        if groups == 1 and kp == k and mp == m and src.is_contiguous():
+            return src.reshape(1, m, k), (b, ho, wo)
         src = src[:, :, :, None, None, :]
     else:
         # (B, Ho, Wo, C, kh, kw) windows -> (B, Ho, Wo, kh, kw, C)
         src = xn.unfold(1, kh, stride).unfold(2, kw, stride)
         src = src.permute(0, 1, 2, 4, 5, 3)
-    cols = torch.empty((mp, kp), dtype=torch.int8, device=x_q.device)
+    # (B, Ho, Wo, kh, kw, g, C / g) -> (g, B, Ho, Wo, kh, kw, C / g)
+    src = src.reshape(b, ho, wo, kh, kw, groups, cg).permute(
+        5, 0, 1, 2, 3, 4, 6)
+    cols = torch.empty((groups, mp, kp), dtype=torch.int8, device=x_q.device)
     if kp > k:
-        cols[:, k:].zero_()
+        cols[:, :, k:].zero_()
     if mp > m:
-        cols[m:].zero_()
-    cols[:m, :k].view(b, ho, wo, kh, kw, c).copy_(src)
+        cols[:, m:].zero_()
+    cols[:, :m, :k].view(groups, b, ho, wo, kh, kw, cg).copy_(src)
     return cols, (b, ho, wo)
 
 
-def weight_matrix(w_q: Tensor, kp: int) -> Tensor:
-    """The (Kp, Np) int8 weight operand of the GEMM, K in (kh, kw, cin)
-    order, zero-padded to ``kp`` rows and to Np = Cout rounded up to 8
-    columns; column-major (the transpose of a row-major (Np, Kp))."""
+def weight_matrix(w_q: Tensor, kp: int, groups: int = 1) -> Tensor:
+    """The (g, Kp, Np) int8 weight operands of the GEMMs, one a group:
+    K in (kh, kw, cin) order, zero-padded to ``kp`` rows and to Np =
+    Cout / g rounded up to 8 columns; each group's matrix column-major
+    (the transpose of a row-major (Np, Kp))."""
     cout = w_q.shape[0]
-    wm = w_q.permute(0, 2, 3, 1).reshape(cout, -1)   # (Cout, K)
-    k, np_ = wm.shape[1], _up(cout, 8)
-    if kp != k or np_ != cout:
-        wm = F.pad(wm, (0, kp - k, 0, np_ - cout))
-    return wm.contiguous().t()
+    ng = cout // groups
+    wm = w_q.permute(0, 2, 3, 1).reshape(groups, ng, -1)   # (g, Ng, K)
+    k, np_ = wm.shape[2], _up(ng, 8)
+    if kp != k or np_ != ng:
+        wm = F.pad(wm, (0, kp - k, 0, np_ - ng))
+    return wm.contiguous().transpose(1, 2)
 
 
 def int8_conv_card(x_q: Tensor, w_q: Tensor, stride: int,
-                   padding: int) -> Tensor:
+                   padding: int, groups: int = 1) -> Tensor:
     """The s32 sums by ``torch._int_mm`` on the card, as (B, Cout, Ho,
-    Wo) in channels-last memory."""
+    Wo) in channels-last memory; one GEMM a group."""
     cout, _, kh, kw = w_q.shape
-    cols, (b, ho, wo) = im2col(x_q, kh, kw, stride, padding)
-    y = torch._int_mm(cols, weight_matrix(w_q, cols.shape[1]))
-    return y[:b * ho * wo, :cout].reshape(b, ho, wo, cout).permute(
-        0, 3, 1, 2)
+    cols, (b, ho, wo) = im2col(x_q, kh, kw, stride, padding, groups)
+    m, ng = b * ho * wo, cout // groups
+    wm = weight_matrix(w_q, cols.shape[-1], groups)
+    y = torch.empty((groups, cols.shape[1], wm.shape[2]), dtype=torch.int32,
+                    device=x_q.device)
+    for j in range(groups):
+        torch._int_mm(cols[j], wm[j], out=y[j])
+    # (g, B, Ho, Wo, Ng) -> (B, Ho, Wo, g·Ng): output channel j·Ng + n
+    y = y[:, :m, :ng].reshape(groups, b, ho, wo, ng).permute(1, 2, 3, 0, 4)
+    return y.reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
 
 
 def quant_conv2d_plain(x: Tensor, weight: Tensor, stride: int,
-                       padding: int, out_dtype: torch.dtype) -> Tensor:
+                       padding: int, out_dtype: torch.dtype,
+                       groups: int = 1) -> Tensor:
     """The whole int8 convolution with the plain s32 sums, on any
     device."""
     x_q, w_q, s_x, s_w = quantize(x, weight)
-    return dequantize(int8_conv_plain(x_q, w_q, stride, padding), s_x, s_w,
-                      out_dtype)
+    return dequantize(int8_conv_plain(x_q, w_q, stride, padding, groups),
+                      s_x, s_w, out_dtype)
 
 
 def quant_conv2d(x: Tensor, weight: Tensor, stride: int, padding: int,
-                 out_dtype: torch.dtype) -> Tensor:
-    """x (B, Cin, H, W), weight (Cout, Cin, kh, kw) -> (B, Cout, Ho, Wo)
-    in ``out_dtype``: :func:`quant_conv2d_plain` for CPU tensors, the
-    integer GEMM (:func:`int8_conv_card`) for CUDA tensors; any other
+                 out_dtype: torch.dtype, groups: int = 1) -> Tensor:
+    """x (B, Cin, H, W), weight (Cout, Cin / groups, kh, kw) -> (B, Cout,
+    Ho, Wo) in ``out_dtype``: :func:`quant_conv2d_plain` for CPU tensors,
+    the integer GEMM (:func:`int8_conv_card`) for CUDA tensors; any other
     device raises."""
     if x.device.type == "cpu":
-        return quant_conv2d_plain(x, weight, stride, padding, out_dtype)
+        return quant_conv2d_plain(x, weight, stride, padding, out_dtype,
+                                  groups)
     if x.device.type != "cuda":
         raise ValueError(f"quant_conv2d: unsupported device {x.device}")
     x_q, w_q, s_x, s_w = quantize(x, weight)
-    return dequantize(int8_conv_card(x_q, w_q, stride, padding), s_x, s_w,
-                      out_dtype)
+    return dequantize(int8_conv_card(x_q, w_q, stride, padding, groups),
+                      s_x, s_w, out_dtype)

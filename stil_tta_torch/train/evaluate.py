@@ -18,7 +18,12 @@ is a warm start of the student's encoders
 ``finetune_strategy: frozen`` their updates are zero
 (``train/optim.py``); STiL's ``teacher_int8`` runs the EMA teacher's
 image tower in int8 (the other families ignore it, as the JAX package
-does). Not ported: ``host_stream`` (``NotImplementedError``).
+does). ``host_stream`` trains from splits larger than device memory:
+the train batches come from :class:`HostStream` (the native gather into
+pinned buffers, a copy stream) as batch-shaped virtual caches, the
+labelled and unlabelled tabular tables stay on the device as the
+corruption marginals, and validation and test stay in a
+:class:`DeviceCache`.
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -30,6 +35,7 @@ raises ``ValueError`` where sklearn does.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -38,8 +44,10 @@ import numpy as np
 import torch
 from scipy.stats import rankdata
 
-from stil_tta_torch.data.loader import (CyclingSampler, DeviceCache,
-                                        EpochSampler, WeightedSampler)
+from stil_tta_torch.data.loader import (VIRTUAL_CACHE_KEYS, CyclingEpochView,
+                                        CyclingSampler, DeviceCache,
+                                        EpochSampler, HostStream,
+                                        WeightedSampler)
 
 
 def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
@@ -171,9 +179,6 @@ def _refuse_unported(cfg) -> None:
     ``teacher_int8`` on a ViT) are its constructor's."""
     from stil_tta_torch.algorithms.registry import get_algorithm
     get_algorithm(cfg.algorithm_name)
-    if cfg.host_stream:
-        raise NotImplementedError(
-            "host_stream is not ported to stil_tta_torch yet (ROADMAP.md)")
     if float(cfg.val_check_interval or 1.0) < 1.0:
         raise ValueError(
             "val_check_interval < 1.0 (fractional mid-epoch validation) "
@@ -218,8 +223,19 @@ def evaluate(cfg, logdir: Optional[Path] = None,
 
     algo = get_algorithm(cfg.algorithm_name)(cfg, src_l.field_lengths,
                                              device=device)
-    cache_l = DeviceCache(src_l, device=algo.device).as_dict()
-    cache_u = DeviceCache(src_u, device=algo.device).as_dict()
+    # host_stream: the train batches are gathered on the host and arrive
+    # as batch-shaped virtual caches (read with arange indices); the full
+    # tabular tables stay on the device, so the corruption marginals are
+    # the whole split's (``marginal_table``)
+    host_stream = bool(cfg.host_stream)
+    if host_stream:
+        def marginal(src):
+            return torch.tensor(np.asarray(src.tabular, np.float32),
+                                device=algo.device)
+        marg_l, marg_u = marginal(src_l), marginal(src_u)
+    else:
+        cache_l = DeviceCache(src_l, device=algo.device).as_dict()
+        cache_u = DeviceCache(src_u, device=algo.device).as_dict()
     cache_val = DeviceCache(sources["val"], device=algo.device).as_dict()
     seed0 = int(cfg.seed or 0)
     torch.manual_seed(seed0)    # the fusion dropout's generator
@@ -288,12 +304,31 @@ def evaluate(cfg, logdir: Optional[Path] = None,
         optim.set_learning_rate(state.optimizer, lr)
         t0 = time.time()
         l_sampler, u_sampler = make_samplers(epoch)
-        pairs = [(l_sampler.next()[0], idx_u)
-                 for idx_u, _ in u_sampler.epoch()][:steps_per_epoch]
-        for idx_l, idx_u in pairs:
-            train_step(state, cache_l, cache_u,
-                       torch.from_numpy(idx_l).to(algo.device),
-                       torch.from_numpy(idx_u).to(algo.device), epoch)
+        if host_stream:
+            il = torch.arange(l_batch, dtype=torch.int32, device=algo.device)
+            iu = torch.arange(u_batch, dtype=torch.int32, device=algo.device)
+            streams = (
+                HostStream(src_l, CyclingEpochView(l_sampler,
+                                                   steps_per_epoch),
+                           device=algo.device).epoch(),
+                HostStream(src_u, u_sampler, device=algo.device).epoch())
+            with contextlib.ExitStack() as stack:
+                for stream in streams:
+                    stack.callback(stream.close)
+                # the labelled view ends the epoch at steps_per_epoch
+                # (``limit_train_batches``)
+                for bl, bu in zip(*streams):
+                    vl = {k: bl[k] for k in VIRTUAL_CACHE_KEYS if k in bl}
+                    vu = {k: bu[k] for k in VIRTUAL_CACHE_KEYS if k in bu}
+                    vl["marginal"], vu["marginal"] = marg_l, marg_u
+                    train_step(state, vl, vu, il, iu, epoch)
+        else:
+            pairs = [(l_sampler.next()[0], idx_u)
+                     for idx_u, _ in u_sampler.epoch()][:steps_per_epoch]
+            for idx_l, idx_u in pairs:
+                train_step(state, cache_l, cache_u,
+                           torch.from_numpy(idx_l).to(algo.device),
+                           torch.from_numpy(idx_u).to(algo.device), epoch)
         state, train_logs = algo.epoch_end(state)
         dt = time.time() - t0
         train_logs["lr"] = lr

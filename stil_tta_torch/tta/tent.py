@@ -17,7 +17,11 @@ multimodal head over test batches with Adam on the BatchNorm affine
 parameters alone; ``eata`` and ``sar`` (``tta/methods.py``) filter and
 weight the samples. Adaptation runs the net in eval mode with autograd
 on: dropout is off and BatchNorm reads the re-estimated running
-statistics, as the JAX package's ``train=False`` forward does.
+statistics, as the JAX package's ``train=False`` forward does. A net
+with no BatchNorm (a ViT image tower) adapts nothing: the stats pass
+runs its batches and changes no statistic, and the JAX package's Adam,
+masked to BN affine leaves it does not find, changes no parameter, so
+the port runs no entropy step.
 
 The adapted statistics and parameters are written into the net in place.
 """
@@ -147,7 +151,12 @@ def adapt(cfg, algo, cache: dict, stats: StatsFn = bn_stats
             f"net; {algo.name}'s net returns no head by that name and "
             f"supports tta_strategy=bn_adapt only, as the JAX package does")
     counts = {"stats_batches": estimate_bn_stats(cfg, algo, cache, stats)}
-    if strategy in ("eata", "sar"):
+    if strategy != "bn_adapt" and not bn_parameters(algo.net):
+        # no BatchNorm (a ViT image tower): the JAX package's Adam,
+        # masked to the BN affine leaves, runs its steps and changes
+        # nothing; here no step runs
+        counts["steps"] = 0
+    elif strategy in ("eata", "sar"):
         from stil_tta_torch.tta import methods
         counts.update((methods.eata_adapt if strategy == "eata"
                        else methods.sar_adapt)(cfg, algo, cache))

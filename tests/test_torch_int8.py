@@ -114,8 +114,9 @@ def test_quant_conv_matches_jax_bitwise(jx, case, out):
     assert np.count_nonzero(want) > want.size // 2
     x_q, w_q, _, _ = qc.quantize(x, wt)
     cols, (b, ho, wo) = qc.im2col(x_q, k, k, s, p)
-    assert cols.shape[1] % 8 == 0 and cols.shape[0] >= 17
-    y = cols.long() @ qc.weight_matrix(w_q, cols.shape[1]).long()
+    assert cols.shape[0] == 1
+    assert cols.shape[2] % 8 == 0 and cols.shape[1] >= 17
+    y = cols[0].long() @ qc.weight_matrix(w_q, cols.shape[-1])[0].long()
     y = y[:b * ho * wo, :cout].reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
     assert torch.equal(y.int(), qc.int8_conv_plain(x_q, w_q, s, p))
 
@@ -125,11 +126,11 @@ def test_stem_gemm_pads_k_to_152():
     weight with zero rows; an (M <= 16)-row GEMM gets zero rows to 17."""
     x_q = torch.ones(1, 3, 8, 8, dtype=torch.int8)
     cols, (b, ho, wo) = qc.im2col(x_q, 7, 7, 2, 3)
-    assert (b, ho, wo) == (1, 4, 4) and cols.shape == (17, 152)
-    assert not cols[:, 147:].any() and not cols[16:].any()
+    assert (b, ho, wo) == (1, 4, 4) and cols.shape == (1, 17, 152)
+    assert not cols[:, :, 147:].any() and not cols[:, 16:].any()
     wm = qc.weight_matrix(torch.ones(64, 3, 7, 7, dtype=torch.int8), 152)
-    assert wm.shape == (152, 64) and not wm[147:].any()
-    assert wm.t().is_contiguous()
+    assert wm.shape == (1, 152, 64) and not wm[:, 147:].any()
+    assert wm[0].t().is_contiguous()
 
 
 def test_quant_conv_refuses_a_device_it_has_no_route_for():
@@ -249,9 +250,9 @@ def test_micro_batched_teacher_quantizes_per_chunk(jx, monkeypatch):
     B / 2 rows; the student's train-mode convs stay exact."""
     rows = []
 
-    def record(x, weight, stride, padding, out_dtype):
+    def record(x, weight, stride, padding, out_dtype, groups=1):
         rows.append(x.shape[0])
-        return qc.quant_conv2d(x, weight, stride, padding, out_dtype)
+        return qc.quant_conv2d(x, weight, stride, padding, out_dtype, groups)
 
     monkeypatch.setattr(port_resnet, "quant_conv2d", record)
     cfg = _cfg(jx, load_config)

@@ -203,11 +203,14 @@ def test_unported_strategies_raise_and_change_nothing(reference, strategy):
 def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="tta_strategy"):
         adapt(_cfg(load_config, tta_strategy="tentt"), None, {})
-    # training is ported; its unported options raise before any data loads
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(["--config-name", "config_dvm_STiL", "--device", "cpu",
-                   "dataset=synthetic_dvm", "evaluate=True", "test=False",
-                   "host_stream=true"])
+    # training is ported, host_stream too (slice 13): the training
+    # options' check passes it, and raises only for what stays refused
+    from stil_tta_torch.train.evaluate import _refuse_unported
+    hs = _cfg(load_config, host_stream=True)
+    _refuse_unported(hs)
+    hs.val_check_interval = 0.5
+    with pytest.raises(ValueError, match="val_check_interval"):
+        _refuse_unported(hs)
     # missing_tabular and Supervised are ported: the test split carries
     # its masks, and the registry builds Supervised
     cfg = _cfg(load_config, missing_tabular=True, missing_rate=0.5)

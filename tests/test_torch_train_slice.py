@@ -199,20 +199,33 @@ def test_cli_resume_is_bitwise_exact_in_the_fast_profile(tmp_path):
     "model=wide_resnet50_2", "algorithm_name=Tent",
 ])
 def test_unported_training_options_raise(override, tmp_path):
-    """Options still to port raise ``NotImplementedError`` naming
-    ROADMAP.md (``host_stream``; the wider ResNet is the image encoder's
-    refusal); a name that no registry knows (``Tent``) raises
-    ``ValueError``, as the JAX registry does. ``teacher_int8`` and the
-    ``.ckpt`` warm start are ported: STiL refuses the int8 teacher only
-    for a ViT encoder (``ValueError``, as JAX), and the warm start reads
-    the file (here missing: ``FileNotFoundError``)."""
+    """A name that no registry knows (``Tent``) raises ``ValueError``, as
+    the JAX registry does. The other options are ported and raise only
+    where the JAX package refuses: STiL refuses the int8 teacher for a
+    ViT encoder (``ValueError``, as JAX), and the warm start reads the
+    file (here missing: ``FileNotFoundError``). ``host_stream`` trains
+    (one step here), and the wide ResNet builds (on the meta device:
+    shapes only), as every name of the JAX encoder zoo does (slice 13)."""
     cfg = load_config("config_dvm_STiL", OVERRIDES + [
         override, f"logdir={tmp_path}"])
+    if override == "host_stream=true":
+        cfg.max_epochs, cfg.limit_train_batches = 1, 1
+        cfg.test_and_eval = False
+        assert 0 <= evaluate(cfg, device="cpu")["best_val"] <= 1
+        return
+    if override == "model=wide_resnet50_2":
+        from stil_tta_torch.models.resnet import EMBEDDING_DIM, image_encoder
+        with torch.device("meta"):
+            tower = image_encoder(cfg.model)
+        assert tower.layer1[0].conv2.weight.shape == (128, 128, 3, 3)
+        assert tower.layer4[-1].conv3.out_channels == EMBEDDING_DIM[
+            cfg.model]
+        return
     error, match = {
         "algorithm_name=Tent": (ValueError, "Algorithm name not found"),
         "teacher_int8=true": (ValueError, "ViT unsupported"),
         "checkpoint=warm.ckpt": (FileNotFoundError, "warm.ckpt"),
-    }.get(override, (NotImplementedError, "ROADMAP.md"))
+    }[override]
     if override == "teacher_int8=true":
         cfg.model = "vit_base"
     with pytest.raises(error, match=match):
