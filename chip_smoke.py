@@ -195,6 +195,28 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     phase 17 (c)'s tower forward on ResNeXt-50 (cosine over 0.99, 549
     calls, no convolution kernel), and one ``teacher_int8`` step on
     ResNeXt-50 (549 calls).
+20. The offline data prep and the shift workflow: (a) a DVM-width source
+    from the seed (8,192 rows of 128² x 3 uint8, the synthetic_dvm field
+    lengths, 286 classes), then ``python -m stil_tta_torch.dataprep.shifted``
+    for the seven shifts of ``run_dist_shifts_torch.sh`` (``normal``;
+    ``black``, ``b-s-g``, ``b-s-b-g-w`` on categorical column 0;
+    ``miles`` and ``adv_year`` quantile shifts on two continuous columns;
+    the ``labels`` label-distribution shift), one subprocess each, all
+    started together, with each shift's sizes and JS-divergence report,
+    and ``black`` built twice byte-equal; (b) ``train.test.test`` with
+    BN-adapt on each shift's splits at full width (53 ``bn_stats`` a
+    statistics batch, no ``bn_bwd_reduce``), and Tent on ``black`` (the
+    same counts: its entropy steps run BN in eval mode), each run also
+    held to the counts ``adapt`` returns inside ``test()`` and to its
+    BN affine change (0 for BN-adapt, above 0 for Tent), each run's wall
+    time and the sweep's peak memory; (c) BN-adapt on ``black`` with the
+    kernel against the plain statistics (phase 4's tolerance), and the
+    command ``run_dist_shifts_torch.sh`` builds for ``normal`` (read through
+    a stub ``python``) as one subprocess, exit 0; (d) the TTA demo
+    (``stil_tta_torch.tools.tta_demo``, ResNet-18 at 64², 8 classes, its
+    base training cut to DEMO_EPOCHS epochs): clean, shifted and recovered
+    accuracy of each strategy, and 20 launches of each kernel a train step
+    and 20 ``bn_stats`` a BN-adapt batch.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -2321,6 +2343,366 @@ def grouped_int8_phase(dev) -> dict:
         zip(("bn_stats", "bn_bwd_reduce"), launches))}
 
 
+def adapt_kernel_vs_plain(cfg, algo, cache: dict, init_state: dict,
+                          tag: str) -> None:
+    """BN-adapt of ``algo.net`` from ``init_state`` on ``cache`` with the
+    ``bn_stats`` kernel and with the plain statistics side by side
+    (phases 4 and 20): the adapted running statistics and one eval
+    batch's probabilities, held to phase 4's tolerance."""
+    from stil_tta_torch.ops.batch_norm import bn_stats, bn_stats_plain
+    from stil_tta_torch.tta import adapt
+    dev = cache["labels"].device
+    stats_batches = math.ceil(int(cache["labels"].shape[0])
+                              / int(cfg.batch_size))
+    step = algo.make_eval_step()
+    idx = torch.arange(int(cfg.batch_size), device=dev)
+    runs = {}
+    for name, fn in (("kernel", bn_stats), ("plain", bn_stats_plain)):
+        algo.net.load_state_dict(init_state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adapt(cfg, algo, cache, stats=fn)
+        torch.cuda.synchronize()
+        t_adapt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prob = step(cache, idx)["prob_m"].float()
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        bufs = {k: v.float().clone() for k, v in
+                algo.net.state_dict().items() if k.endswith(
+                    ("running_mean", "running_var"))}
+        runs[name] = (bufs, prob)
+        log(f"[{tag}] adapt with {name} statistics: {t_adapt * 1e3:.1f} ms "
+            f"({stats_batches} batches), eval batch {t_eval * 1e3:.1f} ms")
+    kb, kp = runs["kernel"]
+    pb, pp = runs["plain"]
+    # a running mean's difference in units of its channel's std, a
+    # running variance's relative to itself
+    d_mean = max(float(((kb[k] - pb[k]).abs()
+                        / pb[k[:-4] + "var"].clamp_min(1e-12).sqrt()).max())
+                 for k in kb if k.endswith("mean"))
+    d_var = max(float(((kb[k] - pb[k]).abs() / pb[k].clamp_min(1e-12)).max())
+                for k in kb if k.endswith("var"))
+    d_prob = float((kp - pp).abs().max())
+    finite = all(bool(torch.isfinite(v).all()) for v in kb.values())
+    rows = float((kp.sum(1) - 1).abs().max())
+    log(f"[{tag}] adapted running stats, kernel vs plain ({len(kb)} "
+        f"buffers): max |d mean|/std {d_mean:.3e}, max |d var|/var "
+        f"{d_var:.3e}; prob_m max abs diff {d_prob:.3e}; prob rows sum to "
+        f"1 within {rows:.1e}")
+    if not finite or not bool(torch.isfinite(kp).all()) or rows > 1e-3:
+        raise SystemExit("non-finite adapted statistics or probabilities")
+    # bfloat16 activations: the two runs differ only by float32 summation
+    # order in the statistics, which can flip a bf16 rounding of a
+    # channel's mean or variance (0.4%) and then carries through the
+    # following layers
+    if max(d_mean, d_var) > 0.1 or d_prob > 0.05:
+        raise SystemExit("kernel and plain adaptation disagree")
+
+
+# ---- phase 20: the offline data prep and the shift workflow ---------------
+
+SHIFT_ROWS = 8192           # 128² x 3 uint8 rows, 0.4 GB on the host
+SHIFT_FIELDS = [5, 4, 2] + [1] * 14   # synthetic_dvm.yaml's field lengths
+SHIFT_CLASSES = 286
+SHIFT_DATA = Path("runs/chip_smoke_shift_data")
+SHIFT_FRACTION = "0.1"
+# the stand-ins for the DVM table's columns: categorical column 0 (five
+# values, named as colours) for Color, and the continuous columns at the
+# reference layout's Adv_year (8) and Runned_Miles (11) positions
+COLOURS = {0: "blue", 1: "silver", 2: "white", 3: "black", 4: "grey"}
+YEAR_COL, MILES_COL = 8, 11
+# the dataprep CLI's arguments for each shift of the sweep, in its order.
+# b-s-b-g-w holds out four colours, not five: column 0 has five values at
+# these widths, and all five would leave no train pool
+SHIFT_ARGS = {
+    "normal": ["--shift", "normal"],
+    "black": ["--shift", "column", "--column", "0", "--values", "3"],
+    "b-s-g": ["--shift", "column", "--column", "0", "--values", "0", "1",
+              "4"],
+    "b-s-b-g-w": ["--shift", "column", "--column", "0", "--values", "0",
+                  "1", "3", "4"],
+    "miles": ["--shift", "quantile", "--column", str(MILES_COL),
+              "--quantile", "0.8"],
+    "adv_year": ["--shift", "quantile", "--column", str(YEAR_COL),
+                 "--quantile", "0.8"],
+    "labels": ["--shift", "labels", "--column", "0", "--labeled-values",
+               "3", "--unlabeled-values", "2", "4"],
+}
+# the TTA demo's base training, cut from its 30 epochs to fit the phase
+DEMO_EPOCHS = 10
+DEMO_STEPS_PER_EPOCH = 2048 // 32   # --n-train over the labelled batch
+DEMO_STATS_BATCHES = 512 // 64      # --n-test over --batch-size
+RESNET18_BN = 20
+
+
+def _same_tree(a: Path, b: Path) -> bool:
+    fa = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    fb = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    return bool(fa) and fa == fb and all(
+        (a / r).read_bytes() == (b / r).read_bytes() for r in fa)
+
+
+def shift_splits_phase() -> dict:
+    """Phase 20 (a): the DVM-width source from the seed, then the port's
+    dataprep CLI in one subprocess for each shift of the sweep (and
+    ``black`` once more), all started together; returns each shift's
+    ``shift_report.json``."""
+    from stil_tta_torch.data.source import synthetic_source
+    shutil.rmtree(SHIFT_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic_source(SHIFT_ROWS, num_classes=SHIFT_CLASSES,
+                     field_lengths=SHIFT_FIELDS, image_size=IMG,
+                     seed=20).save(SHIFT_DATA / "all")
+    log(f"[shift] source: {SHIFT_ROWS} rows of {IMG}² x 3 uint8, fields "
+        f"{SHIFT_FIELDS}, {SHIFT_CLASSES} classes, written in "
+        f"{time.perf_counter() - t0:.1f} s; stand-ins: colour = column 0 "
+        f"{COLOURS}, adv_year = column {YEAR_COL}, miles = column "
+        f"{MILES_COL}; b-s-b-g-w holds out four colours (column 0 has five "
+        f"values)")
+    jobs = dict(SHIFT_ARGS, black_repeat=SHIFT_ARGS["black"])
+    t0 = time.perf_counter()
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "stil_tta_torch.dataprep.shifted",
+         "--source", str(SHIFT_DATA / "all"),
+         "--name", tag.replace("_repeat", ""),
+         "--label-fraction", SHIFT_FRACTION, "--out", str(SHIFT_DATA / tag),
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tag, args in jobs.items()}
+    failed = []
+    for tag, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            log(stderr[-4000:])
+            failed.append(tag)
+    log(f"[shift] {len(procs)} dataprep subprocesses in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise SystemExit(f"shifted splits: the dataprep CLI failed: {failed}")
+    reports = {}
+    for shift in SHIFT_ARGS:
+        rep = json.loads((SHIFT_DATA / shift / "shift_report.json")
+                         .read_text())
+        reports[shift] = rep
+        log(f"[shift] {shift}: {rep['description']}; sizes "
+            f"{json.dumps(rep['sizes'])}; {rep['num_classes']} classes; "
+            f"JS divergence {json.dumps(rep['js_divergence'])}")
+    repeat = _same_tree(SHIFT_DATA / "black", SHIFT_DATA / "black_repeat")
+    log(f"[shift] black built twice: byte-equal files {repeat}")
+    if not repeat:
+        raise SystemExit("shifted splits: one shift built twice differs")
+    shutil.rmtree(SHIFT_DATA / "black_repeat")
+    return reports
+
+
+def shift_overrides(shift: str) -> list:
+    """The shift sweep's flags for ``shift`` (``run_dist_shifts_torch.sh``'s
+    own and the split directories; ``data_val`` is read by the loader and
+    not by the test entry point)."""
+    d = SHIFT_DATA / shift
+    return [f"dataset=dvm_all_server_reordered_SemiPseudo_{SHIFT_FRACTION}_"
+            f"{shift}", "test=True", "evaluate=False",
+            f"data_base={d}", f"data_val={d / 'test'}",
+            "enable_progress_bar=false"]
+
+
+@contextlib.contextmanager
+def recording_adapt(record: dict):
+    """Within the block, ``tta.adapt`` (which ``test()`` calls and whose
+    counts it drops) writes into ``record`` the counts it returns and the
+    largest change of a BatchNorm weight or bias over the call."""
+    from stil_tta_torch import tta
+    from stil_tta_torch.tta.tent import bn_parameters
+    inner = tta.adapt
+
+    def adapt(cfg, algo, cache, *args, **kwargs):
+        params = [p for _, p in bn_parameters(algo.net)]
+        before = [p.detach().float().clone() for p in params]
+        record["counts"] = inner(cfg, algo, cache, *args, **kwargs)
+        record["moved"] = max(float((p.detach().float() - b).abs().max())
+                              for p, b in zip(params, before))
+        return record["counts"]
+
+    tta.adapt = adapt
+    try:
+        yield record
+    finally:
+        tta.adapt = inner
+
+
+def shift_sweep_phase(reports: dict) -> dict:
+    """Phase 20 (b): ``train.test.test`` with BN-adapt for each shift at
+    full width (ResNet-50 at 128², the 4-layer tabular transformer at
+    d=512, batch 512, seeded random weights), and Tent on ``black``;
+    returns the launches of each. Each run is also held to what ``adapt``
+    says it ran: BN-adapt one stats sweep and no affine change, Tent its
+    entropy steps and a moved BN affine parameter."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.test import test
+    from stil_tta_torch.tta.tent import knob
+    torch.cuda.reset_peak_memory_stats()
+    by_path = {}
+    runs = [(s, "bn_adapt") for s in SHIFT_ARGS] + [("black", "tent")]
+    for shift, strategy in runs:
+        cfg = load_config("config_dvm_STiL", shift_overrides(shift) + [
+            "tta=True", f"tta_strategy={strategy}",
+            f"logdir=runs/chip_smoke_shift_{shift}_{strategy}"])
+        n_test = reports[shift]["sizes"]["test"]
+        batches = math.ceil(n_test / int(cfg.batch_size))
+        expected = {"stats_batches": batches}
+        if strategy == "tent":
+            expected["steps"] = batches * int(knob(cfg.tta_steps, 1))
+        torch.cuda.synchronize()
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        t0 = time.perf_counter()
+        with recording_adapt({}) as adapted:
+            metrics = test(cfg.copy(), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"bn_stats": bn_stats.launches,
+                    "bn_bwd_reduce": bn_bwd_reduce.launches}
+        results = Path(cfg.logdir) / "test_results.csv"
+        log(f"[shift] {shift} {strategy}: {cfg.model} {cfg.img_size}² "
+            f"tabular {cfg.tabular_transformer_num_layers}x"
+            f"{cfg.tabular_embedding_dim} batch {cfg.batch_size}, "
+            f"{n_test} test rows, YAML classes {cfg.num_classes} (split "
+            f"{reports[shift]['num_classes']}); test() {wall:.3f} s; "
+            f"launches {json.dumps(launches)} (bn_stats 53 x {batches}); "
+            f"adapt ran {json.dumps(adapted.get('counts'))} (expected "
+            f"{json.dumps(expected)}), largest BN affine change "
+            f"{adapted.get('moved', float('nan')):.3e}; "
+            f"metrics {json.dumps(metrics)}; results file {results.exists()}")
+        # Tent's entropy steps run the net in eval mode (the JAX package's
+        # train=False forward): BatchNorm reads its running statistics and
+        # neither kernel runs there, so the launches alone cannot tell
+        # Tent from BN-adapt; adapt's counts and the affine change can
+        if launches != {"bn_stats": 53 * batches, "bn_bwd_reduce": 0}:
+            raise SystemExit(f"shift {shift} {strategy}: launches off the "
+                             "path")
+        moved = adapted.get("moved", float("nan"))
+        if adapted.get("counts") != expected or not (
+                moved > 0 if strategy == "tent" else moved == 0):
+            raise SystemExit(f"shift {shift} {strategy}: adapt ran "
+                             f"{adapted.get('counts')} and moved the BN "
+                             f"affine parameters by {moved}; expected "
+                             f"{expected}")
+        if not results.exists() or not all(
+                math.isfinite(v) and 0.0 <= v <= 1.0
+                for v in metrics.values()):
+            raise SystemExit(f"shift {shift} {strategy}: bad test metrics "
+                             f"{metrics}")
+        shutil.rmtree(cfg.logdir, ignore_errors=True)
+        by_path[f"shift_{shift}_{strategy}"] = launches
+    log(f"[shift] peak memory over the sweep "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return by_path
+
+
+def script_commands(script, *extra: str, env: dict = None) -> list:
+    """The ``python`` command lines that the shell script ``script`` runs
+    with ``extra`` as its arguments, read through a stub ``python`` first
+    on ``PATH`` that records its arguments. The sweep script's
+    ``FRACTION``, ``CONFIG`` and ``CHECKPOINT`` are unset unless ``env``
+    sets them. Phase 20 (c) and the sweep script's CPU test read it."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        stub, record = Path(tmp) / "python", Path(tmp) / "argv"
+        stub.write_text("#!/bin/sh\nprintf '%s\\037' \"$@\" >> \"$STUB_LOG\"\n"
+                        "echo >> \"$STUB_LOG\"\n")
+        stub.chmod(0o755)
+        run_env = {k: v for k, v in os.environ.items()
+                   if k not in ("FRACTION", "CONFIG", "CHECKPOINT")}
+        run_env.update(env or {}, STUB_LOG=str(record),
+                       PATH=f"{tmp}{os.pathsep}{os.environ['PATH']}")
+        subprocess.run(["bash", str(script), *extra], env=run_env,
+                       check=True, capture_output=True)
+        return [line.split("\x1f")[:-1]
+                for line in record.read_text().splitlines()]
+
+
+def sweep_command(shift: str, *extra: str) -> list:
+    """The ``python`` command line ``run_dist_shifts_torch.sh`` builds for
+    ``shift`` with ``extra`` as its arguments."""
+    [cmd] = [c for c in script_commands("run_dist_shifts_torch.sh", *extra)
+             if any(a.endswith(f"_{shift}") for a in c)]
+    return cmd
+
+
+def shift_cli_phase() -> None:
+    """Phase 20 (c): BN-adapt on ``black`` with the kernel's statistics
+    against the plain ones (phase 4's check), then the ``normal`` shift
+    as one subprocess of the sweep script's command."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.train.test import build_algo, load_test_split
+    cfg = load_config("config_dvm_STiL", shift_overrides("black") + [
+        "tta=True", "tta_strategy=bn_adapt"])
+    src = load_test_split(cfg)
+    algo = build_algo(cfg, src.field_lengths, "cuda")
+    cache = DeviceCache(src, device="cuda").as_dict()
+    adapt_kernel_vs_plain(cfg, algo, cache,
+                          copy.deepcopy(algo.net.state_dict()), "shift black")
+    del algo, cache, src
+
+    d = SHIFT_DATA / "normal"
+    cmd = sweep_command("normal", f"data_base={d}", f"data_val={d / 'test'}")
+    log(f"[shift] run_dist_shifts_torch.sh's command for normal: "
+        f"python {' '.join(cmd)}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                          text=True, timeout=900)
+    logdir = Path(next(a for a in cmd if a.startswith("logdir="))[7:])
+    results = logdir / "test_results.csv"
+    log(f"[shift] the sweep script's normal command: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{proc.stdout.strip().splitlines()[-1][:600] if proc.stdout else ''}"
+        f"; results file {results.exists()}")
+    if proc.returncode != 0 or not results.exists():
+        log(proc.stderr[-4000:])
+        raise SystemExit("the sweep script's command failed")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+def tta_demo_phase() -> dict:
+    """Phase 20 (d): the TTA demo (``stil_tta_torch.tools.tta_demo``) at
+    its own widths (ResNet-18, 64², 8 classes) with DEMO_EPOCHS of base
+    training; returns its launches."""
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.tools import tta_demo
+    root = Path("runs/chip_smoke_tta_demo")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    t0 = time.perf_counter()
+    rc = tta_demo.main(["--root", str(root), "--epochs", str(DEMO_EPOCHS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"bn_stats": bn_stats.launches,
+                "bn_bwd_reduce": bn_bwd_reduce.launches}
+    steps = DEMO_EPOCHS * DEMO_STEPS_PER_EPOCH
+    stats = len(tta_demo.STRATEGIES) * DEMO_STATS_BATCHES
+    expected = {"bn_stats": RESNET18_BN * (steps + stats),
+                "bn_bwd_reduce": RESNET18_BN * steps}
+    out = json.loads((root / "tta_demo.json").read_text())
+    log(f"[demo] tta_demo --epochs {DEMO_EPOCHS} (cut from 30 to fit the "
+        f"phase's time): exit {rc} in {wall:.1f} s; accuracy clean "
+        f"{out['clean']}, shifted {out['shift_no_tta']}, "
+        + ", ".join(f"{s} {out[f'shift_{s}']} (recovered "
+                    f"{out[f'recovered_{s}']:+})"
+                    for s in tta_demo.STRATEGIES)
+        + f"; launches {json.dumps(launches)} (ResNet-18's 20 BatchNorms: "
+        f"{steps} train steps, {stats} BN-adapt batches: "
+        f"{json.dumps(expected)})")
+    if rc != 0 or not all(math.isfinite(v) for v in out.values()):
+        raise SystemExit(f"tta demo: bad accuracies {out}")
+    if launches != expected:
+        raise SystemExit("tta demo: launches off the path")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"tta_demo": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -2446,50 +2828,7 @@ def main() -> int:
     algo = build_algo(cfg, src.field_lengths, "cuda")
     cache = DeviceCache(src, device="cuda").as_dict()
     init_state = copy.deepcopy(algo.net.state_dict())
-    step = algo.make_eval_step()
-    idx = torch.arange(int(cfg.batch_size), device=dev)
-    runs = {}
-    for name, fn in (("kernel", bn_stats), ("plain", bn_stats_plain)):
-        algo.net.load_state_dict(init_state)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        adapt(cfg, algo, cache, stats=fn)
-        torch.cuda.synchronize()
-        t_adapt = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        prob = step(cache, idx)["prob_m"].float()
-        torch.cuda.synchronize()
-        t_eval = time.perf_counter() - t0
-        bufs = {k: v.float().clone() for k, v in
-                algo.net.state_dict().items() if k.endswith(
-                    ("running_mean", "running_var"))}
-        runs[name] = (bufs, prob, t_adapt, t_eval)
-        log(f"[slice] adapt with {name} statistics: {t_adapt * 1e3:.1f} ms "
-            f"({stats_batches} batches), eval batch {t_eval * 1e3:.1f} ms")
-    kb, kp = runs["kernel"][:2]
-    pb, pp = runs["plain"][:2]
-    # a running mean's difference in units of its channel's std, a
-    # running variance's relative to itself
-    d_mean = max(float(((kb[k] - pb[k]).abs()
-                        / pb[k[:-4] + "var"].clamp_min(1e-12).sqrt()).max())
-                 for k in kb if k.endswith("mean"))
-    d_var = max(float(((kb[k] - pb[k]).abs() / pb[k].clamp_min(1e-12)).max())
-                for k in kb if k.endswith("var"))
-    d_prob = float((kp - pp).abs().max())
-    finite = all(bool(torch.isfinite(v).all()) for v in kb.values())
-    rows = float((kp.sum(1) - 1).abs().max())
-    log(f"[slice] adapted running stats, kernel vs plain ({len(kb)} "
-        f"buffers): max |d mean|/std {d_mean:.3e}, max |d var|/var "
-        f"{d_var:.3e}; prob_m max abs diff {d_prob:.3e}; prob rows sum to "
-        f"1 within {rows:.1e}")
-    if not finite or not bool(torch.isfinite(kp).all()) or rows > 1e-3:
-        raise SystemExit("non-finite adapted statistics or probabilities")
-    # bfloat16 activations: the two runs differ only by float32 summation
-    # order in the statistics, which can flip a bf16 rounding of a
-    # channel's mean or variance (0.4%) and then carries through the
-    # following layers
-    if max(d_mean, d_var) > 0.1 or d_prob > 0.05:
-        raise SystemExit("kernel and plain adaptation disagree")
+    adapt_kernel_vs_plain(cfg, algo, cache, init_state, "slice")
 
     # where the BN-adapt pass spends device time
     from torch.profiler import ProfilerActivity, profile
@@ -2543,7 +2882,7 @@ def main() -> int:
             or not np.isfinite(probs).all():
         raise SystemExit("bad serving output")
     adapt_launches = launches
-    del algo, cache, pred, src, runs
+    del algo, cache, pred, src
     clock.lap("5 serving")
 
     # ---- 6. training at full width
@@ -2654,6 +2993,19 @@ def main() -> int:
     clock.lap("19 (b) encoder zoo")
     by_path.update(grouped_int8_phase(dev))
     clock.lap("19 (c) grouped int8")
+
+    # ---- 20. the offline data prep and the shift workflow
+    t20 = time.perf_counter()
+    reports = shift_splits_phase()
+    clock.lap("20 (a) shifted splits")
+    by_path.update(shift_sweep_phase(reports))
+    clock.lap("20 (b) shift sweep")
+    shift_cli_phase()
+    shutil.rmtree(SHIFT_DATA, ignore_errors=True)
+    clock.lap("20 (c) kernel vs plain, the sweep script's command")
+    by_path.update(tta_demo_phase())
+    clock.lap("20 (d) TTA demo")
+    log(f"[time] phase 20: {time.perf_counter() - t20:.1f} s")
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

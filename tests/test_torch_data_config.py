@@ -270,7 +270,9 @@ def test_attention_mask_matches_jax():
 
 def test_port_imports_no_jax_jax_package_or_triton():
     """Importing every module of stil_tta_torch loads neither JAX (nor
-    flax/optax/orbax) nor the JAX package nor triton."""
+    flax/optax/orbax) nor the JAX package nor triton, nor any of the
+    raw-file parsers' packages (pandas, sklearn, PIL, nibabel), which
+    only the dataprep functions import, inside their bodies."""
     code = (
         "import importlib, pkgutil, sys, stil_tta_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
@@ -278,7 +280,7 @@ def test_port_imports_no_jax_jax_package_or_triton():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stil_tta_tpu', "
-        "'triton'))\n"
+        "'triton', 'pandas', 'sklearn', 'PIL', 'nibabel'))\n"
         "print(len(mods), bad)\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -295,8 +297,10 @@ def test_port_imports_no_jax_jax_package_or_triton():
     # (algorithms.simmatch, algorithms.comatch, algorithms.freematch);
     # slice 11's ops.quant_conv and tools.bn_repeat; slice 12's parallel,
     # parallel.mesh, parallel.collectives and tools.dryrun_multichip;
-    # slice 13's data.native_loader, models.vit and utils.profiling
-    assert int(n) >= 57 and bad.strip() == "[]", out.stdout
+    # slice 13's data.native_loader, models.vit and utils.profiling;
+    # slice 14's seven dataprep modules, tools.tta_demo and
+    # utils.embeddings
+    assert int(n) >= 66 and bad.strip() == "[]", out.stdout
     assert {"stil_tta_torch.algorithms.registry",
             "stil_tta_torch.models.saint",
             "stil_tta_torch.algorithms.match_common",
@@ -313,4 +317,13 @@ def test_port_imports_no_jax_jax_package_or_triton():
             "stil_tta_torch.tools.dryrun_multichip",
             "stil_tta_torch.data.native_loader",
             "stil_tta_torch.models.vit",
-            "stil_tta_torch.utils.profiling"} <= set(names.split())
+            "stil_tta_torch.utils.profiling",
+            "stil_tta_torch.dataprep.dvm",
+            "stil_tta_torch.dataprep.dvm_raw",
+            "stil_tta_torch.dataprep.shifted",
+            "stil_tta_torch.dataprep.ukbb",
+            "stil_tta_torch.dataprep.ukbb_split",
+            "stil_tta_torch.dataprep.ukbb_table",
+            "stil_tta_torch.dataprep.visualize",
+            "stil_tta_torch.tools.tta_demo",
+            "stil_tta_torch.utils.embeddings"} <= set(names.split())

@@ -208,8 +208,10 @@ def test_net_forward_matches_jax(kind, tab_dim, train):
     with x64():
         sd = {k: v.numpy() for k, v in port.state_dict().items()}
         variables, _ = jconvert.convert_torch_state_dict(sd, _target(jnet))
-        want, mut = jnet.apply(variables, jnp.asarray(img), jnp.asarray(tab),
-                               train=train, mutable=["batch_stats"])
+        # jitted: an eager apply compiles the net op by op
+        want, mut = jax.jit(lambda v, i, t: jnet.apply(
+            v, i, t, train=train, mutable=["batch_stats"]))(
+                variables, jnp.asarray(img), jnp.asarray(tab))
     port.train(train)
     with torch.no_grad():
         got = port(as_torch(img), as_torch(tab))

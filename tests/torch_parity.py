@@ -51,10 +51,30 @@ def to_numpy(tree, dtype=None):
 
 
 def init_jax(module, *args, dtype=np.float64, **kw):
-    """``module.init`` with key 0, every floating leaf cast to ``dtype``."""
+    """Variables of ``module`` in ``dtype``: the tree of its ``init`` with
+    key 0, traced abstractly (nothing is drawn or compiled; an eager init
+    compiles every distinct initialiser and shape op by op), filled with
+    seeded numpy values: a weight of two or more axes normal over the
+    square root of its fan-in, a BatchNorm or LayerNorm scale and a
+    running variance in [0.5, 1.5), other vectors normal at 0.1."""
     key = jax.random.key(0)
-    variables = module.init({"params": key, "dropout": key}, *args, **kw)
-    return to_numpy(dict(variables), dtype)
+    shapes = jax.eval_shape(lambda: module.init(
+        {"params": key, "dropout": key}, *args, **kw))
+    rng = np.random.RandomState(0)
+
+    def fill(path, s):
+        name = getattr(path[-1], "key", "")
+        if len(s.shape) >= 2:
+            fan = int(np.prod(s.shape[:-1]))
+            value = rng.randn(*s.shape) / np.sqrt(max(fan, 1))
+        elif name in ("scale", "var"):
+            value = rng.rand(*s.shape) + 0.5
+        else:
+            value = rng.randn(*s.shape) * 0.1
+        return value.astype(dtype if np.issubdtype(s.dtype, np.floating)
+                            else s.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
 
 
 def load_port(port_module: torch.nn.Module, variables) -> torch.nn.Module:
