@@ -84,15 +84,16 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     each kernel), steps/s, samples/s and peak memory; one train step
     with the kernels and one with the plain pair, as phase 7.
 13. The fast numerics profile: ``config_dvm_STiL`` with phase 6's flags
-    and ``micro_batches=4 adam_mu_dtype=bfloat16`` (4 chunks of 16 + 112
-    rows a step, one Adam step with a bfloat16 first moment): 212
-    launches of each kernel a step, steps/s; then one step profiled as
+    and ``micro_batches=4 adam_mu_dtype=bfloat16`` for one epoch (4
+    chunks of 16 + 112 rows a step, one Adam step with a bfloat16 first
+    moment): 212 launches of each kernel a step, steps/s; then one step
+    profiled as
     phase 8 profiles the single-batch step, beside phase 8's numbers.
 14. MMatch and Co-Training at full width (the three-head concat
     backbone: the same ResNet-50 and tabular transformer, a 512-wide
     concat fusion projected to 128, three heads over 286 classes):
-    ``config_dvm_CoTrain`` (EMAN teacher) trained with phase 6's flags
-    (53 x 16 launches of each kernel), its test-time slice (212
+    ``config_dvm_CoTrain`` (EMAN teacher) trained with phase 6's flags for
+    one epoch (53 x 8 launches of each kernel), its test-time slice (212
     ``bn_stats`` launches) and ``Predictor`` as phase 12;
     ``config_dvm_MMatch`` trained the same way, then two steps whose
     memory bank and DA ring stay finite and whose bank position goes 0
@@ -106,8 +107,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     head to 128; ``MatchMultimodalNet``: the ResNet-50 and tabular
     transformer, a 1024-wide concat fusion, a projection head to 128 and
     one head): the six DVM YAMLs (``config_dvm_{,Multi}{SimMatch,
-    CoMatch,FreeMatch}``) trained with phase 6's flags, the imaging ones
-    for one epoch; 53 launches of each kernel a step by the student, and
+    CoMatch,FreeMatch}``) trained with phase 6's flags for one epoch; 53
+    launches of each kernel a step by the student, and
     53 more of ``bn_stats`` by CoMatch's momentum encoder, which runs in
     train-mode BatchNorm without gradient on 64 + 448 + 448 rows;
     MultiSimMatch's test-time slice (212 ``bn_stats`` launches) and
@@ -145,8 +146,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     with 53 ``aten::_int_mm`` calls, their GEMM kernels and no
     convolution kernel; (d) ``Predictor(int8=True)`` at batch 512 beside
     the bf16 one and phase 5, then ``config_dvm_STiL teacher_int8=true``
-    with phase 6's flags (53 x 16 launches of each kernel), steps/s
-    beside phase 6's, peak memory, and a profiled step with 53
+    with phase 6's flags for one epoch (53 x 8 launches of each kernel),
+    steps/s beside phase 6's, peak memory, and a profiled step with 53
     ``_int_mm`` calls (the teacher's convolutions) and 53
     ``bn_bwd_reduce`` kernels; (e) a warm-start checkpoint written by the
     port's converter from seeded random weights, then one epoch with
@@ -166,7 +167,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     bf16 and int8, 700 rows (a padded tail): the largest probability
     difference and equal argmaxes; (c) a one-rank NCCL group through the
     same path, two tiny steps; (d) the dry run's ten families at its tiny
-    shapes on 2 ranks.
+    shapes on 2 ranks; (a)-(b), (c) and (d) run side by side, so the host
+    times of (a) are read beside two other processes.
 19. The host stream and the rest of the encoder zoo: (a) splits of the
     DVM widths written from the seed (32,768 unlabelled and 4,096
     labelled rows of 128² x 3 uint8, read back memmapped), then
@@ -182,9 +184,10 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     (M, C) the zoo adds to phase 3's list; for ResNet-34, -101, -152,
     ResNeXt-50 (32x4d), ResNeXt-101 (32x8d) and the wide ResNet-50 and
     -101 one bfloat16 STiL step at batch 512 with the net's BN count of
-    launches of each kernel (36, 104, 155, 53, 104, 53, 104), a timed and
-    a profiled step (host clock, device busy, peak memory), and
-    phase 7's float32 step with the kernels against the plain pair;
+    launches of each kernel (36, 104, 155, 53, 104, 53, 104), for
+    ResNet-34 and ResNeXt-101 a timed and a profiled step (host clock,
+    device busy, peak memory), and phase 7's float32 step with the
+    kernels against the plain pair;
     ``vit_small`` and ``vit_base``: two STiL steps with no BN kernel
     launched and ``Predictor`` at 512; (c) the grouped int8 convolution
     bitwise equal to its plain route at every grouped shape of ResNeXt-50
@@ -217,6 +220,26 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     base training cut to DEMO_EPOCHS epochs): clean, shifted and recovered
     accuracy of each strategy, and 20 launches of each kernel a train step
     and 20 ``bn_stats`` a BN-adapt batch.
+21. ``steps_per_dispatch`` (``stil_tta_torch/train/multistep.py``), cuDNN
+    deterministic: (a) two bfloat16 STiL states at full width from one
+    seed, two dispatches of 8 steps (epoch 0, then 1, past
+    ``start_epoch``), eager against replays of one captured step (its
+    first step eager, the warm-up): every state tensor bitwise equal
+    after each dispatch, 53 + 53 launches a step on both routes; (b) a
+    graphed dispatch of 4 under the profiler: 53 ``bn_stats`` and 53
+    ``bn_bwd_reduce`` kernels a replayed step, the Python counters in
+    agreement, one graph launch a step, the host's launch calls a step;
+    a step with a planted host sync fails its capture, and the next
+    eager step draws its random numbers again; (c) ``evaluate``
+    in float32 with phase 6's flags for one epoch of 8 steps at
+    ``steps_per_dispatch`` 1 and 3 (two dispatches and a tail of two)
+    through the device cache, and 3 through the host stream: the last
+    checkpoints bitwise equal, 424 + 424 launches each; (d) dispatches of
+    32 (the YAMLs' value): host ms a step eager and graphed (median of
+    three), device busy and idle share, the host's launch calls, the
+    capture's time and pool, peak memory; and FreeMatch under
+    ``steps_per_dispatch: 32`` on the eager route, one dispatch of 32
+    steps (53 + 53 a step).
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -289,6 +312,35 @@ CONV_KERNEL_MARKS = ("conv", "fprop", "cudnn", "implicit_gemm", "winograd")
 
 def log(*args):
     print(*args, flush=True)
+
+
+def cache_synthetic_sources(keep: int = 4) -> None:
+    """Make each size of synthetic splits once for the whole script: the
+    package's ``load_sources`` (as ``train.evaluate`` and ``train.test``
+    call it) keeps the ``keep`` sizes used last. Synthesis is seeded host
+    work that no phase measures, and the splits are never written to (a
+    mask or a truncation makes new ones)."""
+    from stil_tta_torch.data import datasets
+    from stil_tta_torch.train import test as test_mod
+    real = datasets.load_sources
+    cache: collections.OrderedDict = collections.OrderedDict()
+
+    def load_sources(cfg):
+        if not cfg.synthetic:
+            return real(cfg)
+        key = json.dumps([cfg.synthetic_labelled, cfg.synthetic_unlabelled,
+                          cfg.synthetic_val, cfg.synthetic_test,
+                          cfg.num_classes, cfg.synthetic_image_size,
+                          cfg.img_size, cfg.field_lengths, cfg.target],
+                         default=str)
+        if key not in cache:
+            cache[key] = real(cfg)
+            while len(cache) > keep:
+                cache.popitem(last=False)
+        cache.move_to_end(key)
+        return dict(cache[key])
+
+    datasets.load_sources = test_mod.load_sources = load_sources
 
 
 class PhaseClock:
@@ -927,12 +979,12 @@ def pair_phase(dev, single: dict) -> dict:
     by_path = {}
     _, by_path["cotrain_train"], _ = train_full_width(
         "config_dvm_CoTrain", ["logdir=runs/chip_smoke_cotrain_train"],
-        tag="cotrain-train")
+        tag="cotrain-train", epochs=1)
     by_path["cotrain_bn_adapt"] = {
         "bn_stats": adapt_and_serve("config_dvm_CoTrain", "cotrain")}
     cfg, by_path["mmatch_train"], _ = train_full_width(
         "config_dvm_MMatch", ["logdir=runs/chip_smoke_mmatch_train"],
-        tag="mmatch-train")
+        tag="mmatch-train", epochs=1)
     check_mmatch_bank(cfg, dev)
     _, by_path["cotrain_saint_train"], _ = train_full_width(
         "config_dvm_CoTrain_SAINT",
@@ -954,9 +1006,9 @@ def pair_phase(dev, single: dict) -> dict:
 # the FixMatch families' DVM configs: (name, bn_stats launches a step of
 # a train-mode teacher, epochs trained); the multimodal ones are held
 # against the plain pair and profiled
-FIXMATCH = (("SimMatch", 0, 1), ("MultiSimMatch", 0, 2), ("CoMatch", 53, 1),
-            ("MultiCoMatch", 53, 2), ("FreeMatch", 0, 1),
-            ("MultiFreeMatch", 0, 2))
+FIXMATCH = (("SimMatch", 0, 1), ("MultiSimMatch", 0, 1), ("CoMatch", 53, 1),
+            ("MultiCoMatch", 53, 1), ("FreeMatch", 0, 1),
+            ("MultiFreeMatch", 0, 1))
 
 
 def check_comatch_buffers(cfg, dev) -> None:
@@ -1022,7 +1074,7 @@ def fast_profile_phase(dev, single: dict) -> dict:
     extra = [f"micro_batches={MICRO}", "adam_mu_dtype=bfloat16",
              "logdir=runs/chip_smoke_fast"]
     cfg, launches, sps = train_full_width(
-        "config_dvm_STiL", extra, per_step=53 * MICRO, tag="fast")
+        "config_dvm_STiL", extra, per_step=53 * MICRO, tag="fast", epochs=1)
     train_step_kernel_vs_plain(cfg, dev, per_step=53 * MICRO)
     algo, step, batch = step_setup(cfg, dev)
     state = algo.init_state(0)
@@ -1038,7 +1090,7 @@ def fast_profile_phase(dev, single: dict) -> dict:
             st["exp_avg"].dtype != torch.bfloat16 for st in moments):
         raise SystemExit("fast profile: the first moment is not bfloat16")
     fast = profile_train_step(state, step, batch, tag=f"m={MICRO}")
-    log(f"[fast] steps/s over the second epoch {sps:.3f} (m={MICRO}); one "
+    log(f"[fast] steps/s over the epoch {sps:.3f} (m={MICRO}); one "
         f"step: host {fast['host_ms']:.3f} ms vs {single['host_ms']:.3f} ms "
         f"(m=1), device busy {fast['busy_ms']:.3f} vs "
         f"{single['busy_ms']:.3f} ms, idle share "
@@ -1596,11 +1648,11 @@ def int8_phase(dev, single: dict, serve_sps: float) -> dict:
         f"phase 5's bf16 {serve_sps:.1f} samples/s "
         f"((c) and serving {time.perf_counter() - t_c:.1f} s)")
     del algo, images, tabular, pred
-    # (d) teacher-int8 training with phase 6's flags, two epochs
+    # (d) teacher-int8 training with phase 6's flags, one epoch
     torch.cuda.reset_peak_memory_stats()
     cfg, launches, steps = train_full_width(
         extra=["teacher_int8=true", "logdir=runs/chip_smoke_int8"],
-        tag="int8-train")
+        tag="int8-train", epochs=1)
     log(f"[int8-train] {steps:.3f} steps/s against phase 6's "
         f"{single['steps_per_s']:.3f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1715,9 +1767,16 @@ def _dryruns(jobs: dict) -> dict:
 def data_parallel_phase() -> dict:
     """Phase 18: the data-parallel slice on the one card (see the module's
     docstring); returns the per-rank launches of the 2-rank STiL step."""
-    full = {r["case"]: r for r in _dryruns({"full width": [
+    # (a), (b) at full width alone on the card, so that its host times and
+    # collectives share are read without another process beside it; then
+    # (c) NCCL alone on the card and (d) the tiny families over gloo, side
+    # by side
+    runs = _dryruns({"full width": [
         "--ranks", "2", "--scale", "full", "--profile", "--cases", "STiL",
-        "serve", "serve[int8]"]})["full width"]}
+        "serve", "serve[int8]"]})
+    runs.update(_dryruns({"nccl": ["--ranks", "1", "--cases", "STiL"],
+                          "tiny": ["--ranks", "2"]}))
+    full = {r["case"]: r for r in runs["full width"]}
     r = full["STiL"]
     expected = [53, 53]   # (bn_stats, bn_bwd_reduce) a rank-step
     launches_ok = (all(step == expected for rank in r["launches_by_rank"]
@@ -1748,12 +1807,8 @@ def data_parallel_phase() -> dict:
         log(f"[dp] {case} (bf16 net) at batch 512 over {s['rows']} rows: "
             f"largest probability difference {s['max_abs_diff']:.3e} (tol "
             f"{s['atol']}); argmax equal {s['argmax_equal']}")
-    # (c) NCCL alone on the card and (d) the tiny families over gloo,
-    # side by side
-    small = _dryruns({"nccl": ["--ranks", "1", "--cases", "STiL"],
-                      "tiny": ["--ranks", "2"]})
     backends = {tag: sorted({c["backend"] for c in res})
-                for tag, res in small.items()}
+                for tag, res in runs.items() if tag != "full width"}
     log(f"[dp] process group backends: {backends}")
     if backends != {"nccl": ["nccl"], "tiny": ["gloo"]}:
         raise SystemExit("data parallel: one rank on the card did not form "
@@ -1775,6 +1830,10 @@ ZOO_RESNETS = (("resnet34", 36), ("resnet101", 104), ("resnet152", 155),
                ("resnext50_32x4d", 53), ("resnext101_32x8d", 104),
                ("wide_resnet50_2", 53), ("wide_resnet101_2", 104))
 ZOO_VITS = ("vit_small", "vit_base")
+# the zoo's ResNets whose step is timed (the smallest and the one with the
+# most device work); every one of them is stepped, its BN kernels counted
+# by the counters and the profiler, and held against the plain pair
+ZOO_TIMED = ("resnet34", "resnext101_32x8d")
 # ResNeXt-50's teacher forward in int8: 37 ungrouped convs, one integer
 # GEMM each, and 16 grouped 3x3 convs of 32 groups, one GEMM a group
 RESNEXT50_INT_MM = 37 + 16 * 32
@@ -2083,16 +2142,19 @@ def host_stream_phase(dev) -> dict:
     return {"stil_host_stream_train": launches}
 
 
-def zoo_step_profile(state, step, batch) -> dict:
-    """One step on the host's clock, then one under the profiler with
-    CUDA activity alone (phase 8's profile, without its ranges, which a
-    12,000-kernel step makes slow to read): host clock, device busy
-    (kernels), launches, ``bn_bwd_reduce`` kernels."""
+def zoo_step_profile(state, step, batch, timed: bool = True) -> dict:
+    """One step on the host's clock (``timed``), then one under the
+    profiler with CUDA activity alone (phase 8's profile, without its
+    ranges, which a 12,000-kernel step makes slow to read): host clock,
+    device busy (kernels), launches, ``bn_stats`` and ``bn_bwd_reduce``
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    step(state, *batch, 1)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    host_ms = None
+    if timed:
+        t0 = time.perf_counter()
+        step(state, *batch, 1)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, *batch, 1)
@@ -2102,19 +2164,22 @@ def zoo_step_profile(state, step, batch) -> dict:
         e, "device_time_total", getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = lambda tag: sum(e.count for e in events  # noqa: E731
+                            if tag in e.key)
     return {"host_ms": host_ms, "profiled_host_ms": prof_ms,
             "busy_ms": sum(dev_time(e) for e in events) / 1e3,
             "kernel_launches": sum(e.count for e in events),
-            "bn_bwd_reduce_kernels": sum(
-                e.count for e in events if "bn_bwd_reduce_kernel" in e.key)}
+            "bn_stats_kernels": count("bn_stats_kernel"),
+            "bn_bwd_reduce_kernels": count("bn_bwd_reduce_kernel")}
 
 
 def zoo_phase(dev) -> dict:
     """Phase 19 (b): each ResNet of the zoo at the DVM widths: one
     bfloat16 STiL step at batch 512 with its launches (the net's BN
-    count of each kernel), then a timed and a profiled step (host clock,
-    device busy, peak memory), then phase 7's float32 step with
-    the kernels against the plain pair; the BN kernels at every (M, C)
+    count of each kernel), then a profiled step whose BN kernels must
+    number as many, for ZOO_TIMED after a step on the host's clock (host
+    clock, device busy, peak memory), then phase 7's float32 step
+    with the kernels against the plain pair; the BN kernels at every (M, C)
     the zoo adds to phase 3's list; each ViT's two STiL steps (no BN
     kernel) and ``Predictor`` at 512. Every net's float32 step fits at
     batch 512 on the 80 GB card."""
@@ -2169,19 +2234,24 @@ def zoo_phase(dev) -> dict:
         step(state, *batch, 1)
         torch.cuda.synchronize()
         launches = (bn_stats.launches, bn_bwd_reduce.launches)
-        prof = zoo_step_profile(state, step, batch)
-        peak = torch.cuda.max_memory_allocated()
         log(f"[zoo] {name}: launches a step (bn_stats, bn_bwd_reduce) "
-            f"{launches} (expected {(n_bn, n_bn)}); bf16 step at batch "
-            f"{BATCH}: host {prof['host_ms']:.3f} ms (profiled "
-            f"{prof['profiled_host_ms']:.3f} ms), device busy "
-            f"{prof['busy_ms']:.3f} ms, idle share "
-            f"{1 - prof['busy_ms'] / prof['host_ms']:.1%}, "
-            f"{prof['kernel_launches']} kernel launches, "
-            f"{prof['bn_bwd_reduce_kernels']} bn_bwd_reduce kernels; peak "
-            f"memory {peak / 2**30:.3f} GiB")
-        if launches != (n_bn, n_bn) \
-                or prof["bn_bwd_reduce_kernels"] != n_bn:
+            f"{launches} (expected {(n_bn, n_bn)})")
+        if launches != (n_bn, n_bn):
+            raise SystemExit(f"{name}: BN kernel launches off the path")
+        prof = zoo_step_profile(state, step, batch, name in ZOO_TIMED)
+        profiled = (prof["bn_stats_kernels"], prof["bn_bwd_reduce_kernels"])
+        if name in ZOO_TIMED:
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[zoo] {name}: bf16 step at batch {BATCH}: host "
+                f"{prof['host_ms']:.3f} ms (profiled "
+                f"{prof['profiled_host_ms']:.3f} ms), device busy "
+                f"{prof['busy_ms']:.3f} ms, idle share "
+                f"{1 - prof['busy_ms'] / prof['host_ms']:.1%}, "
+                f"{prof['kernel_launches']} kernel launches; "
+                f"peak memory {peak / 2**30:.3f} GiB")
+        log(f"[zoo] {name}: profiled step's (bn_stats, bn_bwd_reduce) "
+            f"kernels {profiled} (expected {(n_bn, n_bn)})")
+        if profiled != (n_bn, n_bn):
             raise SystemExit(f"{name}: BN kernel launches off the path")
         by_path[f"zoo_{name}_step"] = dict(zip(("bn_stats", "bn_bwd_reduce"),
                                                launches))
@@ -2430,7 +2500,7 @@ SHIFT_ARGS = {
                "3", "--unlabeled-values", "2", "4"],
 }
 # the TTA demo's base training, cut from its 30 epochs to fit the phase
-DEMO_EPOCHS = 10
+DEMO_EPOCHS = 2
 DEMO_STEPS_PER_EPOCH = 2048 // 32   # --n-train over the labelled batch
 DEMO_STATS_BATCHES = 512 // 64      # --n-test over --batch-size
 RESNET18_BN = 20
@@ -2687,7 +2757,7 @@ def tta_demo_phase() -> dict:
                 "bn_bwd_reduce": RESNET18_BN * steps}
     out = json.loads((root / "tta_demo.json").read_text())
     log(f"[demo] tta_demo --epochs {DEMO_EPOCHS} (cut from 30 to fit the "
-        f"phase's time): exit {rc} in {wall:.1f} s; accuracy clean "
+        f"script's time): exit {rc} in {wall:.1f} s; accuracy clean "
         f"{out['clean']}, shifted {out['shift_no_tta']}, "
         + ", ".join(f"{s} {out[f'shift_{s}']} (recovered "
                     f"{out[f'recovered_{s}']:+})"
@@ -2703,6 +2773,389 @@ def tta_demo_phase() -> dict:
     return {"tta_demo": launches}
 
 
+# ---- phase 21: steps_per_dispatch, one captured step replayed ------------
+
+DISPATCH_K = 8        # (a): the steps of each compared dispatch
+PROFILED_K = 4        # (b), (d): the replays of the profiled dispatch
+TIMING_K = 32         # (d): the YAMLs' steps_per_dispatch
+SPD_EVAL = 3          # (c): 8 steps an epoch, two blocks and a tail of 2
+
+
+def _dispatch_rows(caches, block) -> list:
+    """The rows of a dispatch from an (il (K, 64), iu (K, 448)) block of
+    host indices: copied to the card once, one view a step."""
+    il, iu = (torch.from_numpy(b).to(caches[0]["labels"].device)
+              for b in block)
+    return [(*caches, il[i], iu[i]) for i in range(il.shape[0])]
+
+
+def _epoch_pairs(n_l: int, n_u: int, epoch: int, seed: int = 0) -> list:
+    """The (idx_l, idx_u) of an epoch as ``evaluate`` draws them."""
+    from stil_tta_torch.data.loader import CyclingSampler, EpochSampler
+    u = EpochSampler(n_u, BATCH - 64, shuffle=True, drop_last=True,
+                     seed=seed + 100003 * epoch)
+    lab = CyclingSampler(n_l, 64, seed=seed + 100003 * epoch + 1)
+    return [(lab.next()[0], idx_u) for idx_u, _ in u.epoch()]
+
+
+def _block(pairs: list, k: int, start: int = 0):
+    """k pairs of ``pairs`` from ``start`` (cycled) as one (K, B) block."""
+    import numpy as np
+    rows = [pairs[(start + i) % len(pairs)] for i in range(k)]
+    return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+
+
+def _compare_states(a: dict, b: dict) -> dict:
+    """Two snapshots of named tensors: the count of bitwise equal ones,
+    the largest relative L2 difference of a float one, the integer ones
+    that differ."""
+    equal, rel, ints = 0, 0.0, []
+    for k, t in a.items():
+        u = b[k]
+        if torch.equal(t, u):
+            equal += 1
+        elif t.is_floating_point():
+            d = (t.double() - u.double()).norm()
+            rel = max(rel, float(d / u.double().norm().clamp_min(1e-30)))
+        else:
+            ints.append(k)
+    return {"bitwise": equal, "tensors": len(a), "rel_l2": rel,
+            "ints_off": ints, "same_names": set(a) == set(b)}
+
+
+def _snapshot(state) -> dict:
+    from stil_tta_torch.train.multistep import state_tensors
+    return {k: t.detach().clone() for k, t in state_tensors(state).items()}
+
+
+def _profiled_dispatch(dispatch, state, rows) -> dict:
+    """One dispatch under the profiler: kernels on the card, the BN
+    kernels among them, device busy, graph launches and the host's launch
+    calls (the runtime's kernel and graph launches, copies and fills)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dispatch(state, rows, 1)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    runtime = [e for e in events if e.key.startswith("cuda")]
+    count = lambda es, tag: sum(e.count for e in es  # noqa: E731
+                                if tag in e.key)
+    return {"kernels": sum(e.count for e in kernels),
+            "bn": (count(kernels, "bn_stats_kernel"),
+                   count(kernels, "bn_bwd_reduce_kernel")),
+            "busy_ms": sum(getattr(e, "device_time_total",
+                                   getattr(e, "cuda_time_total", 0))
+                           for e in kernels) / 1e3,
+            "graph_launches": count(runtime, "cudaGraphLaunch"),
+            "calls": sum(e.count for e in runtime if any(
+                w in e.key for w in ("Launch", "Memcpy", "Memset")))}
+
+
+def dispatch_equality(dev, smi: str) -> dict:
+    """Phase 21 (a), (b): two bfloat16 STiL states from one seed at full
+    width; one runs two dispatches of DISPATCH_K eager steps (epoch 0,
+    then 1: the pseudo-label gate turns on), the other the same two
+    dispatches as replays of one captured step (its first step eager: the
+    warm-up). Every state tensor must be bitwise equal after each
+    dispatch. Then a graphed dispatch of PROFILED_K under the profiler:
+    53 ``bn_stats`` and 53 ``bn_bwd_reduce`` kernels a replayed step, the
+    Python counters in agreement, one graph launch a step."""
+    from stil_tta_torch.algorithms.stil import STiL
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.multistep import EagerSteps, GraphedStep
+    cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES)
+    src = load_sources(cfg)
+    fl = src["train_labelled"].field_lengths
+    caches = [DeviceCache(src[k], device=dev).as_dict()
+              for k in ("train_labelled", "train_unlabelled")]
+    n_l, n_u = len(src["train_labelled"]), len(src["train_unlabelled"])
+    blocks = [_block(_epoch_pairs(n_l, n_u, e), DISPATCH_K) for e in (0, 1)]
+    runs = {}
+    for route in ("eager", "graph"):
+        algo = STiL(cfg, fl, device=dev)
+        torch.manual_seed(0)    # the dropout's generator, for both runs
+        state = algo.init_state(0)
+        step = algo.make_train_step()
+        dispatch = (GraphedStep(algo, step) if route == "graph"
+                    else EagerSteps(step))
+        snaps, launches = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch, block in enumerate(blocks):
+            bn_stats.launches = bn_bwd_reduce.launches = 0
+            dispatch(state, _dispatch_rows(caches, block), epoch)
+            torch.cuda.synchronize()
+            launches.append((bn_stats.launches, bn_bwd_reduce.launches))
+            snaps.append(_snapshot(state))
+        runs[route] = {"algo": algo, "state": state, "dispatch": dispatch,
+                       "snaps": snaps, "launches": launches,
+                       "wall": time.perf_counter() - t0}
+    e, g = runs["eager"], runs["graph"]
+    cmp = [_compare_states(a, b) for a, b in zip(e.pop("snaps"),
+                                                 g.pop("snaps"))]
+    want = [(53 * DISPATCH_K,) * 2] * 2
+    d = g["dispatch"]
+    for i, c in enumerate(cmp):
+        log(f"[dispatch] (a) bf16, dispatch {i + 1} (epoch {i}) of "
+            f"{DISPATCH_K} steps, eager against graphed: {c['bitwise']} of "
+            f"{c['tensors']} state tensors bitwise equal (nets, EMA "
+            f"teacher, Adam, prototypes, DA ring and position, metrics), "
+            f"largest float relative L2 {c['rel_l2']:.3e}, integer tensors "
+            f"off {c['ints_off']}")
+    log(f"[dispatch] (a) launches (bn_stats, bn_bwd_reduce) by dispatch: "
+        f"eager {e['launches']}, graphed {g['launches']} (expected {want}); "
+        f"captured step {d.launches_per_replay}; capture {d.capture_s:.2f} s,"
+        f" graph pool {d.pool_bytes / 2**30:.3f} GiB; wall eager "
+        f"{e['wall']:.2f} s, graphed {g['wall']:.2f} s (the warm-up step and "
+        f"the capture included); {smi}")
+    if not all(c["same_names"] and c["bitwise"] == c["tensors"]
+               for c in cmp) or e["launches"] != want \
+            or g["launches"] != want:
+        raise SystemExit("dispatch: the graphed dispatch differs from the "
+                         "eager steps, or a kernel's launches are off")
+    if not torch.equal(e["state"].generator.get_state(),
+                       g["state"].generator.get_state()) \
+            or not e["state"].step == g["state"].step == 2 * DISPATCH_K:
+        raise SystemExit("dispatch: generator or step count differs")
+    # (b) a replayed dispatch under the profiler
+    pairs = _epoch_pairs(n_l, n_u, 2)
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    prof = _profiled_dispatch(d, g["state"], _dispatch_rows(
+        caches, _block(pairs, PROFILED_K)))
+    counters = (bn_stats.launches, bn_bwd_reduce.launches)
+    log(f"[dispatch] (b) one graphed dispatch of {PROFILED_K} replays "
+        f"profiled: (bn_stats, bn_bwd_reduce) kernels {prof['bn']}, "
+        f"{prof['bn'][0] / PROFILED_K:.1f} and "
+        f"{prof['bn'][1] / PROFILED_K:.1f} a step (53 expected); Python "
+        f"counters {counters}; {prof['graph_launches']} graph launches; "
+        f"{prof['calls']} host launch calls "
+        f"({prof['calls'] / PROFILED_K:.2f} a step); {prof['kernels']} "
+        f"kernels on the card")
+    if prof["bn"] != counters or counters != (53 * PROFILED_K,) * 2 \
+            or prof["graph_launches"] != PROFILED_K:
+        raise SystemExit("dispatch: the replayed kernels or the counters "
+                         "are off")
+    return {"runs": runs, "caches": caches, "pairs": pairs,
+            "field_lengths": fl, "graph_profile": prof,
+            "launches": {"bn_stats": counters[0],
+                         "bn_bwd_reduce": counters[1]}}
+
+
+def dispatch_timing(eq: dict, smi: str) -> None:
+    """Phase 21 (d): host ms a step of the eager and the graphed dispatch
+    of TIMING_K steps (the median of three dispatches, host clock ending
+    in a synchronize), device busy and idle share (the graph's from (b)'s
+    profiled dispatch, the eager route's from a profiled dispatch of 2),
+    the host's launch calls a step; the capture's time and pool, peak
+    memory. The graphed step must make under 1% of the eager step's
+    launch calls."""
+    pairs, out = eq["pairs"], {}
+    torch.cuda.reset_peak_memory_stats()
+    for route in ("eager", "graph"):
+        run = eq["runs"][route]
+        state, d = run["state"], run["dispatch"]
+        wall = []
+        for i in range(3):
+            rows = _dispatch_rows(eq["caches"], _block(pairs, TIMING_K, i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d(state, rows, 1)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3 / TIMING_K)
+        if route == "graph":
+            prof, n = eq["graph_profile"], PROFILED_K
+        else:
+            n = 2
+            prof = _profiled_dispatch(d, state, _dispatch_rows(
+                eq["caches"], _block(pairs, n)))
+        host = sorted(wall)[1]
+        busy, calls = prof["busy_ms"] / n, prof["calls"] / n
+        out[route] = {"host_ms": host, "busy_ms": busy, "calls": calls}
+        log(f"[dispatch] (d) bf16, dispatches of {TIMING_K}, {route}: host "
+            f"{host:.3f} ms a step (median of "
+            f"{', '.join(f'{w:.3f}' for w in wall)}), device busy "
+            f"{busy:.3f} ms a step, idle share {1 - busy / host:.1%} (busy "
+            f"of a profiled dispatch of {n}); {prof['kernels'] / n:.0f} "
+            f"kernels and {calls:.2f} host launch calls a step; {smi}")
+    d = eq["runs"]["graph"]["dispatch"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[dispatch] (d) capture {d.capture_s:.2f} s, graph pool "
+        f"{d.pool_bytes / 2**30:.3f} GiB, peak memory allocated "
+        f"{peak / 2**30:.3f} GiB over the timed dispatches (two bf16 "
+        f"states); eager / graphed host time a step "
+        f"{out['eager']['host_ms'] / out['graph']['host_ms']:.3f}; {smi}")
+    if out["eager"]["calls"] < 1000 \
+            or out["graph"]["calls"] * 100 > out["eager"]["calls"]:
+        raise SystemExit("dispatch: the host's launch calls were not read, "
+                         "or the graphed step makes 1% of the eager "
+                         "step's or more")
+
+
+def dispatch_eager_route(eq: dict, dev, smi: str) -> None:
+    """Phase 21 (d): a FixMatch family (FreeMatch) under
+    ``steps_per_dispatch: 32`` takes the eager route: one dispatch of
+    TIMING_K steps, each launched eagerly (53 + 53 a step)."""
+    from stil_tta_torch.algorithms.registry import get_algorithm
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.multistep import make_dispatcher
+    cfg = load_config("config_dvm_FreeMatch", TRAIN_OVERRIDES + [
+        f"steps_per_dispatch={TIMING_K}"])
+    algo = get_algorithm(cfg.algorithm_name)(cfg, eq["field_lengths"],
+                                             device=dev)
+    state = algo.init_state(0)
+    step = algo.make_train_step()
+    dispatch, why = make_dispatcher(cfg, algo, step)
+    rows = _dispatch_rows(eq["caches"], _block(eq["pairs"], TIMING_K))
+    bn_stats.launches = bn_bwd_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dispatch(state, rows, 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMING_K
+    launches = (bn_stats.launches, bn_bwd_reduce.launches)
+    log(f"[dispatch] (d) FreeMatch, steps_per_dispatch {TIMING_K}: "
+        f"{dispatch.route} route ({why}); one dispatch {ms:.3f} ms a step "
+        f"(host clock, its first steps warm cuDNN), launches {launches} "
+        f"(expected {(53 * TIMING_K,) * 2}); {smi}")
+    if dispatch.route != "eager" or launches != (53 * TIMING_K,) * 2 \
+            or state.step != TIMING_K:
+        raise SystemExit("dispatch: FreeMatch did not run its K steps "
+                         "eagerly")
+
+
+def dispatch_planted_failure(eq: dict) -> None:
+    """Phase 21 (b): a step with a planted host sync (a device value read
+    on the host) cannot be captured: the dispatch raises, it does not run
+    eager steps instead, and the generators draw eagerly again after it."""
+    from stil_tta_torch.train.multistep import GraphedStep
+    run = eq["runs"]["eager"]
+    step = run["algo"].make_train_step()
+
+    def synced(state, *args):
+        float(state.log_count)     # the planted host sync
+        return step(state, *args)
+
+    rows = _dispatch_rows(eq["caches"], _block(eq["pairs"], 2))
+    planted = GraphedStep(run["algo"], synced)
+    try:
+        planted(run["state"], rows, 1)
+    except RuntimeError as exc:
+        log(f"[dispatch] (b) capture with a planted host sync failed, as it "
+            f"must: {str(exc).splitlines()[0][:160]}")
+    else:
+        raise SystemExit("dispatch: a step with a host sync was captured")
+    if planted.graph is not None:
+        raise SystemExit("dispatch: a failed capture left a graph")
+    step(run["state"], *rows[1], 1)     # eager draws work again
+    torch.cuda.synchronize()
+
+
+def _evaluate_f32(cfg):
+    """``evaluate`` on the card with the algorithm computing in float32
+    (the class of the registry built with ``dtype``)."""
+    from stil_tta_torch.algorithms import registry
+    from stil_tta_torch.train.evaluate import evaluate
+    real = registry.get_algorithm
+
+    def float32(name):
+        cls = real(name)
+
+        class Float32(cls):
+            def __init__(self, cfg, field_lengths, device):
+                super().__init__(cfg, field_lengths, dtype=torch.float32,
+                                 device=device)
+        return Float32
+
+    registry.get_algorithm = float32
+    try:
+        return evaluate(cfg, device="cuda")
+    finally:
+        registry.get_algorithm = real
+
+
+def dispatch_evaluate(smi: str) -> None:
+    """Phase 21 (c): ``evaluate`` with phase 6's flags for one epoch of 8
+    steps in float32, at ``steps_per_dispatch`` 1 and SPD_EVAL (two
+    graphed dispatches and a tail of two single steps) through the device
+    cache, and at SPD_EVAL through the host stream: the last checkpoints
+    bitwise equal, and both kernels' launches the single-step run's."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    ckpts = {}
+    for spd, hs in ((1, False), (SPD_EVAL, False), (SPD_EVAL, True)):
+        logdir = Path(f"runs/chip_smoke_dispatch_{spd}_{hs}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES + [
+            "max_epochs=1", "checkpoint_every_n_epochs=1",
+            "save_checkpoints=false", "test_and_eval=false",
+            f"steps_per_dispatch={spd}", f"host_stream={str(hs).lower()}",
+            f"logdir={logdir}"])
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _evaluate_f32(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (bn_stats.launches, bn_bwd_reduce.launches)
+        payload = torch.load(logdir / "checkpoint_last", map_location="cpu",
+                             weights_only=True)
+        ckpts[(spd, hs)] = dict(_tensors(payload))
+        log(f"[dispatch] (c) evaluate, float32, steps_per_dispatch {spd}, "
+            f"host_stream {hs}: {wall:.1f} s, launches (bn_stats, "
+            f"bn_bwd_reduce) {launches} (expected "
+            f"{(53 * STEPS_PER_EPOCH,) * 2}), step {payload['step']}")
+        if launches != (53 * STEPS_PER_EPOCH,) * 2 \
+                or payload["step"] != STEPS_PER_EPOCH:
+            raise SystemExit("dispatch: evaluate's launches or steps are off")
+        shutil.rmtree(logdir, ignore_errors=True)
+    ref = ckpts[(1, False)]
+    for key in ((SPD_EVAL, False), (SPD_EVAL, True)):
+        c = _compare_states(ckpts[key], ref)
+        log(f"[dispatch] (c) the last checkpoint of steps_per_dispatch "
+            f"{key[0]} (host_stream {key[1]}) against 1 (the device cache): "
+            f"{c['bitwise']} of {c['tensors']} tensors bitwise equal, largest"
+            f" float relative L2 {c['rel_l2']:.3e}, integers off "
+            f"{c['ints_off']}; {smi}")
+        if not c["same_names"] or c["bitwise"] != c["tensors"]:
+            raise SystemExit("dispatch: evaluate at steps_per_dispatch "
+                             f"{key[0]} differs from single steps")
+
+
+def dispatch_phase(dev, smi: str, clock) -> dict:
+    """Phase 21: ``steps_per_dispatch`` as replays of one captured STiL
+    step (cuDNN deterministic for the phase); returns the launches of the
+    profiled graphed dispatch."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t21 = time.perf_counter()
+    try:
+        eq = dispatch_equality(dev, smi)
+        launches = eq["launches"]
+        clock.lap("21 (a, b) dispatch equality, replayed launches")
+        dispatch_timing(eq, smi)
+        dispatch_eager_route(eq, dev, smi)
+        dispatch_planted_failure(eq)
+        del eq
+        torch.cuda.empty_cache()
+        clock.lap("21 (d) timing, the eager route, (b) planted failure")
+        dispatch_evaluate(smi)
+        clock.lap("21 (c) evaluate")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[time] phase 21: {time.perf_counter() - t21:.1f} s")
+    return {"stil_graphed_dispatch": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on the card",
@@ -2712,6 +3165,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    cache_synthetic_sources()
     clock = PhaseClock()
 
     # ---- 1. device
@@ -3006,6 +3460,9 @@ def main() -> int:
     by_path.update(tta_demo_phase())
     clock.lap("20 (d) TTA demo")
     log(f"[time] phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # ---- 21. steps_per_dispatch: replays of one captured train step
+    by_path.update(dispatch_phase(dev, smi, clock))
     log(f"[time] launches by path {json.dumps(by_path)}")
     paths = {k: {p: n[k] for p, n in by_path.items() if k in n}
              for k in ("bn_stats", "bn_bwd_reduce")}

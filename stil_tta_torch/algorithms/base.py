@@ -49,29 +49,48 @@ def ema_update(ema: nn.Module, student: nn.Module, momentum: float,
 class DAState:
     """Distribution-alignment queue (``STiLModel.py:100-104, 171-180``):
     a ring of ``length`` batch-mean class distributions and its write
-    position."""
+    position, a 0-dim int64 tensor on the ring's device, so that a step
+    writes and advances it on the device (and a captured step's replays
+    keep doing so)."""
 
     queue: Tensor  # (L, C)
-    ptr: int
+    ptr: Tensor    # () int64
 
     @classmethod
     def create(cls, num_classes: int, length: int = 256,
                dtype=torch.float32, device="cpu") -> "DAState":
         return cls(torch.zeros((length, num_classes), dtype=dtype,
-                               device=device), 0)
+                               device=device),
+                   torch.zeros((), dtype=torch.long, device=device))
+
+    def clone(self) -> "DAState":
+        return DAState(self.queue.clone(), self.ptr.clone())
+
+    def row(self, ptr: Tensor) -> Tensor:
+        """The (C,) row of the ring at position ``ptr`` (a 0-dim tensor)."""
+        return self.queue.index_select(0, ptr.view(1))[0]
+
+    @torch.no_grad()
+    def write(self, row: Tensor) -> None:
+        """Put ``row`` into the slot at the write position and advance it,
+        in place on the device."""
+        self.queue.index_copy_(0, self.ptr.view(1),
+                               row.view(1, -1).to(self.queue.dtype))
+        self.ptr.add_(1).remainder_(self.queue.shape[0])
 
 
 def distribution_alignment(da: DAState, probs: Tensor
                            ) -> Tuple[DAState, Tensor]:
-    """Put the batch mean of ``probs`` into the ring, divide ``probs`` by
-    the ring's mean and renormalise. Returns the new state (the old one is
-    not modified) and the detached aligned probabilities."""
+    """Put the batch mean of ``probs`` into the ring (in place: ``da`` is
+    written and advanced), divide ``probs`` by the ring's mean and
+    renormalise. Returns ``da`` and the detached aligned probabilities; a
+    caller that must keep the ring as it was aligns against
+    ``da.clone()``."""
     probs = probs.detach()
-    queue = da.queue.clone()
-    queue[da.ptr] = probs.mean(0).to(queue.dtype)
-    aligned = probs / queue.mean(0).clamp_min(1e-12)
+    da.write(probs.mean(0))
+    aligned = probs / da.queue.mean(0).clamp_min(1e-12)
     aligned = aligned / aligned.sum(1, keepdim=True)
-    return DAState(queue, (da.ptr + 1) % queue.shape[0]), aligned
+    return da, aligned
 
 
 def sharpen(logits: Tensor, temperature: float) -> Tensor:

@@ -241,9 +241,9 @@ class MMatch(MatchBase):
                 y_l, y_u, images, tabs = self.chunk_views(
                     state, cache_l, cache_u, il, iu)
                 om, feat_m, pseudo, da_c, total, logs = forward_losses(
-                    state, da0, images, tabs, y_l, epoch)
+                    state, da0.clone(), images, tabs, y_l, epoch)
                 # the chunk's mean sits in the slot its alignment wrote
-                means.append(da_c.queue[da0.ptr])
+                means.append(da_c.row(da0.ptr))
                 b_l = y_l.shape[0]
                 feats_l.append(feat_m[:b_l])
                 feats_u.append(feat_m[b_l:])
@@ -256,9 +256,7 @@ class MMatch(MatchBase):
             accumulate_chunks(state.optimizer, m_micro, chunk, idx_l, idx_u)
             optim.step(state.optimizer)
             with torch.no_grad():
-                queue = da0.queue.clone()
-                queue[da0.ptr] = sum(means[1:], means[0]) / m_micro
-                state.da = DAState(queue, (da0.ptr + 1) % queue.shape[0])
+                da0.write(sum(means[1:], means[0]) / m_micro)
                 y_l = gather_batch(cache_l, idx_l)["labels"]
                 commit_bank(state, torch.cat(feats_l + feats_u, 0), y_l,
                             torch.cat(pseudos, 0))

@@ -191,10 +191,10 @@ class SimMatch(MatchBase):
                     state.net, (y_l.shape[0], y_u.shape[0]),
                     torch.cat([x[0], s[0]]), torch.cat([x[1], s[1]]))
                 feat_kx, da_c, total, logs = targets_losses(
-                    state, da0, logits, feat, x, w, y_l, int(epoch))
+                    state, da0.clone(), logits, feat, x, w, y_l, int(epoch))
                 if use_da:
                     # the chunk's mean sits in the slot its alignment wrote
-                    means.append(da_c.queue[da0.ptr])
+                    means.append(da_c.row(da0.ptr))
                 feats.append(feat_kx)
                 self.update_accuracy(state, logits, y_l, y_u)
                 for k in self.LOG_KEYS:
@@ -205,10 +205,7 @@ class SimMatch(MatchBase):
             optim.step(state.optimizer)
             with torch.no_grad():
                 if use_da:
-                    queue = da0.queue.clone()
-                    queue[da0.ptr] = sum(means[1:], means[0]) / m_micro
-                    state.da = DAState(queue,
-                                       (da0.ptr + 1) % queue.shape[0])
+                    da0.write(sum(means[1:], means[0]) / m_micro)
                 y_l = gather_batch(cache_l, idx_l)["labels"]
                 scatter_bank(state, cache_l, idx_l, torch.cat(feats), y_l)
                 self.add_logs(state, {k: v / m_micro

@@ -12,8 +12,10 @@ net on a device, the transforms, seeded random weights, the train state
 :class:`STiL_SAINT` is STiL with the SAINT tabular encoder.
 
 The train state is mutable: the step updates the net, the EMA teacher,
-the optimizer and the buffers in place and returns the same object, where
-the JAX package returns a new pytree.
+the optimizer and every buffer in place (no state tensor is rebound, so a
+captured step's replays keep updating the same tensors,
+``train/multistep.py``) and returns the same object, where the JAX
+package returns a new pytree.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         accuracy_update, auroc_compute,
                                         auroc_init, auroc_update)
 from stil_tta_torch.parallel import sharded
-from stil_tta_torch.train import optim
+from stil_tta_torch.train import multistep, optim
 
 Tensor = torch.Tensor
 
@@ -213,13 +215,44 @@ class STiL:
             img_size=int(cfg.img_size))
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
+        # 1.0 past start_epoch, else 0.0: a device scalar, so that a
+        # captured step reads the epoch's value (set_epoch) at each replay
+        self.use_pseudo = torch.zeros((), dtype=acc_dtype(dtype),
+                                      device=self.device)
+        self._use_pseudo_value: Optional[float] = None
+
+    def set_epoch(self, epoch: int) -> Tensor:
+        """Fill :attr:`use_pseudo` for ``epoch`` (only when its value
+        changes) and return it. The step calls it; a captured step's
+        dispatcher calls it before its replays, never inside a capture."""
+        value = float(int(epoch) > int(self.cfg.start_epoch))
+        if value != self._use_pseudo_value:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("set_epoch: the pseudo-label gate changes "
+                                   "inside a CUDA graph capture")
+            self.use_pseudo.fill_(value)
+            self._use_pseudo_value = value
+        return self.use_pseudo
+
+    @classmethod
+    def graph_unsafe(cls, cfg) -> Optional[str]:
+        """None when the train step under ``cfg`` can be captured in a
+        CUDA graph (``train/multistep.py``), else why not: the
+        micro-batched step and the int8 teacher's are not captured."""
+        if int(cfg.micro_batches or 1) > 1:
+            return "micro_batches > 1"
+        if bool(cfg.teacher_int8):
+            return "teacher_int8"
+        return None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> STiLState:
         """Seeded random weights (:func:`init_weights`), the EMA backbone
         as a copy of the student's, a fresh optimizer and zeroed buffers.
         The generator that drew the weights goes on to draw the steps'
-        random views and routing."""
+        random views and routing. The optimizer is capturable when the
+        config's steps take the graph route."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -231,7 +264,9 @@ class STiL:
             self.net.parameters(), float(cfg.lr_eval),
             float(cfg.weight_decay_eval or 0.0),
             frozen=optim.frozen_parameters(cfg, self.net),
-            mu_dtype=cfg.adam_mu_dtype)
+            mu_dtype=cfg.adam_mu_dtype,
+            capturable=multistep.choose_route(
+                type(self), cfg, self.device)[0] == "graph")
         c, pdim = self.num_classes, int(cfg.projection_dim)
         adt, dev = acc_dtype(self.dtype), self.device
         state = STiLState(
@@ -246,7 +281,13 @@ class STiL:
         return state
 
     def _reset_epoch(self, state: STiLState) -> None:
-        """Zero the per-epoch sums, metric states and loss sums."""
+        """Zero the per-epoch sums, metric states and loss sums: created on
+        the first call, zeroed in place afterwards (a captured step holds
+        their addresses)."""
+        if state.log_count is not None:
+            for t in _epoch_tensors(state):
+                t.zero_()
+            return
         c, pdim = state.prototypes.shape
         adt, dev = state.prototypes.dtype, self.device
         state.prototypes_sum = torch.zeros((c, pdim), dtype=adt, device=dev)
@@ -301,7 +342,6 @@ class STiL:
         th1, temp = float(cfg.th1), float(cfg.temperature)
         lam0 = float(cfg.lambda_0)
         rate_pseudo = float(cfg.rate_pseudo)
-        start_epoch = int(cfg.start_epoch)
         repeat_ratio = float(cfg.repeat_ratio or 1.0)
         momentum = float(cfg.ema_momentum)
         use_ema, eman, use_da = bool(cfg.use_ema), bool(cfg.eman), bool(cfg.DA)
@@ -419,10 +459,11 @@ class STiL:
             return (bl["labels"], bu["labels"], torch.cat([img_l, img_u], 0),
                     torch.cat([tab_l, tab_u], 0), missing)
 
-        def forward_losses(state: STiLState, images, tabs, missing,
+        def forward_losses(state: STiLState, da, images, tabs, missing,
                            mask_rand, y_l, use_pseudo, lerp_ema: bool):
             """Student forward, teacher forward (after the EMAN lerp when
-            ``lerp_ema``), targets against the state's DA queue, losses."""
+            ``lerp_ema``), targets aligned against the DA ring ``da``
+            (written in place), losses."""
             net = state.net
             b_l = y_l.shape[0]
             rows = (b_l, images.shape[0] - b_l)
@@ -438,7 +479,7 @@ class STiL:
                 # (``STiLModel.py:256-257``)
                 tout = {k: outs[k].detach()
                         for k in ("out_m", "out_i", "out_t", "feat_m")}
-            tg = derive_targets(tout, state.da, state.prototypes,
+            tg = derive_targets(tout, da, state.prototypes,
                                 mask_rand, b_l, y_l, use_pseudo)
             total, logs = assemble_losses(outs, tg, y_l, b_l,
                                           state.prototypes, use_pseudo)
@@ -452,20 +493,16 @@ class STiL:
             pla = tg["pseudo_label_all"]
             sum_l, cnt_l = cal_prototypes(pla[:b_l], tg["feat_m_le"])
             sum_u, cnt_u = cal_prototypes(pla[b_l:], tg["feat_m_ue"])
-            state.prototypes_sum = (state.prototypes_sum
-                                    + sum_l / repeat_ratio + sum_u)
-            state.prototypes_count = (state.prototypes_count
-                                      + cnt_l / repeat_ratio + cnt_u)
+            state.prototypes_sum.add_(sum_l / repeat_ratio).add_(sum_u)
+            state.prototypes_count.add_(cnt_l / repeat_ratio).add_(cnt_u)
             prob_m = torch.softmax(outs["out_m"].detach(), dim=1)
             pm_l, pm_u = prob_m[:b_l], prob_m[b_l:]
             if binary:
                 pm_l, pm_u = pm_l[:, 1], pm_u[:, 1]
-                state.auc_train = auroc_update(state.auc_train, pm_l, y_l)
-                state.auc_train_u = auroc_update(state.auc_train_u, pm_u,
-                                                 y_u)
-            state.acc_train = accuracy_update(state.acc_train, pm_l, y_l)
-            state.acc_train_u = accuracy_update(state.acc_train_u, pm_u,
-                                                y_u)
+                auroc_update(state.auc_train, pm_l, y_l)
+                auroc_update(state.auc_train_u, pm_u, y_u)
+            accuracy_update(state.acc_train, pm_l, y_l)
+            accuracy_update(state.acc_train_u, pm_u, y_u)
 
         def draw_mask(state: STiLState, b_u: int,
                       mask_rand: Optional[Tensor]) -> Tensor:
@@ -474,26 +511,32 @@ class STiL:
             gen = state.generator
             return torch.rand(b_u, generator=gen, device=gen.device) >= 0.5
 
+        @torch.no_grad()
+        def add_logs(state: STiLState, logs: Dict[str, Tensor]) -> None:
+            for k in LOG_KEYS:
+                state.log_sums[k].add_(logs[k].detach())
+            state.log_count.add_(1.0)
+
         def step(state: STiLState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int,
                  mask_rand: Optional[Tensor] = None) -> STiLState:
+            """Graph-safe: no host sync, no shape that depends on the
+            data, every state tensor updated in place; the epoch enters
+            as the device gate :attr:`use_pseudo`. Only ``state.step``
+            moves on the host."""
             y_l, y_u, images, tabs, missing = chunk_views(
                 state, cache_l, cache_u, idx_l, idx_u)
             mask_rand = draw_mask(state, y_u.shape[0], mask_rand)
-            use_pseudo = float(int(epoch) > start_epoch)
+            use_pseudo = self.set_epoch(epoch)
             state.net.train()
             outs, tg, total, logs = forward_losses(
-                state, images, tabs, missing, mask_rand, y_l, use_pseudo,
-                lerp_ema=True)
+                state, state.da, images, tabs, missing, mask_rand, y_l,
+                use_pseudo, lerp_ema=True)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
             record(state, outs, tg, y_l, y_u)
-            with torch.no_grad():
-                state.log_sums = {k: state.log_sums[k] + logs[k].detach()
-                                  for k in LOG_KEYS}
-                state.log_count = state.log_count + 1.0
-            state.da = tg["da"]
+            add_logs(state, logs)
             state.step += 1
             return state
 
@@ -501,7 +544,7 @@ class STiL:
                        idx_l: Tensor, idx_u: Tensor, epoch: int,
                        mask_rand: Optional[Tensor] = None) -> STiLState:
             mask_rand = draw_mask(state, idx_u.shape[0], mask_rand)
-            use_pseudo = float(int(epoch) > start_epoch)
+            use_pseudo = self.set_epoch(epoch)
             state.net.train()
             if use_ema:
                 # once, on the pre-step parameters and running statistics
@@ -513,9 +556,10 @@ class STiL:
             def chunk(il: Tensor, iu: Tensor, mr: Tensor) -> Tensor:
                 y_l, y_u, images, tabs, missing = chunk_views(
                     state, cache_l, cache_u, il, iu)
+                # each chunk aligns against the pre-step ring
                 outs, tg, total, logs = forward_losses(
-                    state, images, tabs, missing, mr, y_l, use_pseudo,
-                    lerp_ema=False)
+                    state, None if da0 is None else da0.clone(), images,
+                    tabs, missing, mr, y_l, use_pseudo, lerp_ema=False)
                 record(state, outs, tg, y_l, y_u)
                 with torch.no_grad():
                     for k in LOG_KEYS:
@@ -523,21 +567,15 @@ class STiL:
                     if use_da:
                         # the chunk's mean sits in the slot its alignment
                         # wrote (da0.ptr is fixed this step)
-                        da_sum.append(tg["da"].queue[da0.ptr])
+                        da_sum.append(tg["da"].row(da0.ptr))
                 return total
 
             accumulate_chunks(state.optimizer, m_micro, chunk, idx_l, idx_u,
                               mask_rand)
             optim.step(state.optimizer)
-            with torch.no_grad():
-                if use_da:
-                    queue = da0.queue.clone()
-                    queue[da0.ptr] = sum(da_sum[1:], da_sum[0]) / m_micro
-                    state.da = DAState(queue,
-                                       (da0.ptr + 1) % queue.shape[0])
-                state.log_sums = {k: state.log_sums[k] + lacc[k] / m_micro
-                                  for k in LOG_KEYS}
-                state.log_count = state.log_count + 1.0
+            if use_da:
+                da0.write(sum(da_sum[1:], da_sum[0]) / m_micro)
+            add_logs(state, {k: lacc[k] / m_micro for k in LOG_KEYS})
             state.step += 1
             return state
 
@@ -569,7 +607,7 @@ class STiL:
             logs["eval.train.auc"] = auroc_compute(state.auc_train)
             logs["eval.train_unlabelled.auc"] = auroc_compute(
                 state.auc_train_u)
-        state.prototypes = protos
+        state.prototypes.copy_(protos)
         self._reset_epoch(state)
         return state, logs
 
@@ -615,6 +653,17 @@ class STiL:
             }
 
         return step
+
+
+def _epoch_tensors(state: STiLState):
+    """The tensors :meth:`STiL._reset_epoch` zeroes."""
+    yield from (state.prototypes_sum, state.prototypes_count, state.log_count)
+    yield from state.log_sums.values()
+    for metric in (state.acc_train, state.acc_train_u, state.auc_train,
+                   state.auc_train_u):
+        if metric is not None:
+            yield from (getattr(metric, f.name)
+                        for f in dataclasses.fields(metric))
 
 
 class STiL_SAINT(STiL):

@@ -32,6 +32,12 @@ Tensor = torch.Tensor
 class Supervised(STiL):
     name = "Supervised"
 
+    @classmethod
+    def graph_unsafe(cls, cfg) -> Optional[str]:
+        """Always capturable: the step ignores ``micro_batches`` and
+        ``teacher_int8``."""
+        return None
+
     def make_train_step(self):
         """``step(state, cache_l, cache_u, idx_l, idx_u, epoch,
         mask_rand=None)`` (``supervised.py:31-78``): the labelled rows'
@@ -71,16 +77,15 @@ class Supervised(STiL):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optim.step(state.optimizer)
-            with torch.no_grad():
+            with torch.no_grad():   # in place, as STiL's step
                 prob = torch.softmax(outs["out_m"].detach(), dim=1)
-                state.acc_train = accuracy_update(
-                    state.acc_train, prob[:, 1] if binary else prob, y_l)
+                accuracy_update(state.acc_train,
+                                prob[:, 1] if binary else prob, y_l)
                 loss = loss.detach()
-                state.log_sums = dict(state.log_sums)
-                state.log_sums["CEloss"] = state.log_sums["CEloss"] + loss
-                state.log_sums["loss"] = state.log_sums["loss"] + loss
-                state.log_count = state.log_count + 1.0
-                state.prototypes_count = state.prototypes_count + 1.0
+                state.log_sums["CEloss"].add_(loss)
+                state.log_sums["loss"].add_(loss)
+                state.log_count.add_(1.0)
+                state.prototypes_count.add_(1.0)
             state.step += 1
             return state
 

@@ -45,6 +45,7 @@ cardiac targets.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -91,10 +92,17 @@ def default_pipeline(img_size: int, target: str) -> ResizePipeline:
     return ResizePipeline(img_size, scale_255=target.lower() == "dvm")
 
 
+@functools.lru_cache(maxsize=None)
+def _luma(dtype: torch.dtype, device: torch.device) -> Tensor:
+    """The luma weights on ``device``, made once: a copy from the host
+    cannot run inside a CUDA graph capture, and the train step's first,
+    eager call makes them."""
+    return torch.tensor(_LUMA, dtype=dtype, device=device)
+
+
 def _grayscale(img: Tensor) -> Tensor:
     """(..., 3) -> (..., 1) luma."""
-    luma = torch.tensor(_LUMA, dtype=img.dtype, device=img.device)
-    return (img @ luma)[..., None]
+    return (img @ _luma(img.dtype, img.device))[..., None]
 
 
 def _rgb_to_hsv(img: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -321,7 +329,7 @@ class AugmentPipeline:
         """(B, K) blur taps: the drawn Gaussian where ``blur_on`` and the
         gate hold, else the identity delta."""
         delta = torch.zeros(self.blur_ksize, device=device)
-        delta[self.blur_ksize // 2] = 1.0
+        delta[self.blur_ksize // 2].fill_(1.0)   # no host copy (capturable)
         return torch.where((p["blur_on"] & p["gate"])[:, None],
                            _gaussian_kernels(p["blur_sigma"],
                                              self.blur_ksize), delta)

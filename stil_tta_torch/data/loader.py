@@ -11,10 +11,10 @@ index gather on the device and the host only makes index vectors.
 thread gathers each batch from the (memmapped) host arrays with the
 native gather and ships it to the device, and each batch is a
 batch-shaped "virtual cache" (:data:`VIRTUAL_CACHE_KEYS`) that the train
-step reads with ``arange`` indices. Not ported: the JAX class's
-``epoch_blocks`` (it serves ``steps_per_dispatch``, which the port runs
-as single steps) and its ``sharding`` argument (read only by the JAX
-package's benchmark).
+step reads with ``arange`` indices; :meth:`HostStream.epoch_blocks`
+ships ``steps_per_dispatch`` batches at a time as one stacked (K, B, ...)
+block. Not ported: the JAX class's ``sharding`` argument (read only by
+the JAX package's benchmark).
 """
 
 from __future__ import annotations
@@ -192,6 +192,11 @@ class HostStream:
     and so are ``gather_s`` and ``gather_bytes`` (the native gathers'
     seconds and bytes). Each gather runs on ``GATHER_THREADS`` threads.
 
+    ``epoch_blocks(k, max_steps)`` yields ``("block", batch)`` for each
+    full group of ``k`` consecutive batches, every tensor stacked (k, B,
+    ...) and ``weight`` (k, B), gathered and shipped as one batch of k·B
+    rows, and ``("single", batch)`` for each batch of the epoch's tail.
+
     On a CUDA device the worker gathers each batch with the native
     gather into a pinned host buffer from a pool of ``depth + 2``,
     copies it to the card with ``non_blocking=True`` on its own stream
@@ -256,8 +261,9 @@ class HostStream:
         slot["index"] = torch.empty(n, dtype=torch.int32, pin_memory=True)
         return slot
 
-    def _produce(self, put, stop: threading.Event) -> None:
-        """The worker: gather, ship and ``put`` each batch."""
+    def _produce(self, items, put, stop: threading.Event) -> None:
+        """The worker: gather, ship and ``put`` each (kind, idx, w) of
+        ``items``."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.set_device(self.device)
@@ -265,13 +271,13 @@ class HostStream:
                 self._stream = torch.cuda.Stream(self.device)
         inflight: collections.deque = collections.deque()
         try:
-            for idx, w in self.sampler.epoch():
+            for kind, idx, w in items:
                 if stop.is_set():
                     return
                 if not cuda:
                     host = self._host_batch(idx, None)
-                    put(({k: torch.from_numpy(v) for k, v in host.items()},
-                         None, w))
+                    put((kind, {k: torch.from_numpy(v)
+                                for k, v in host.items()}, None, w))
                     continue
                 while inflight and inflight[0][0].query():
                     self._pool.append(inflight.popleft()[1])
@@ -291,13 +297,54 @@ class HostStream:
                     event = torch.cuda.Event()
                     event.record(self._stream)
                 inflight.append((event, slot))
-                put((batch, event, w))
+                put((kind, batch, event, w))
         finally:
             for ev, slot in inflight:
                 ev.synchronize()
                 self._pool.append(slot)
 
     def epoch(self) -> Iterator[dict]:
+        items = self._stream_items(
+            ("single", idx, w) for idx, w in self.sampler.epoch())
+        try:
+            for _, batch in items:
+                yield batch
+        finally:
+            items.close()
+
+    def epoch_blocks(self, k: int, max_steps: Optional[int] = None
+                     ) -> Iterator[tuple]:
+        """The epoch's first ``max_steps`` batches (all when None) as
+        ``("block", batch)`` of ``k`` stacked batches and ``("single",
+        batch)`` for the tail (class docstring), the JAX package's
+        ``HostStream.epoch_blocks``."""
+        def items():
+            buf = []
+            for n, (idx, w) in enumerate(self.sampler.epoch()):
+                if max_steps is not None and n >= max_steps:
+                    break
+                buf.append((idx, w))
+                if len(buf) == k:
+                    yield ("block", np.concatenate([i for i, _ in buf]),
+                           np.stack([w for _, w in buf]))
+                    buf = []
+            for idx, w in buf:
+                yield "single", idx, w
+
+        stream = self._stream_items(items())
+        try:
+            for kind, batch in stream:
+                if kind == "block":
+                    batch = {key: v if key == "weight"
+                             else v.view(k, -1, *v.shape[1:])
+                             for key, v in batch.items()}
+                yield kind, batch
+        finally:
+            stream.close()
+
+    def _stream_items(self, items) -> Iterator[tuple]:
+        """(kind, batch) for each (kind, idx, w) of ``items``, gathered by
+        the worker thread."""
         from stil_tta_torch.data import native_loader
         native_loader.load()     # a build's time is no gather's
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.depth)
@@ -317,7 +364,7 @@ class HostStream:
 
         def worker() -> None:
             try:
-                self._produce(put, stop)
+                self._produce(items, put, stop)
             except BaseException as exc:   # raised again in the consumer
                 failure.append(exc)
             put(end)
@@ -333,14 +380,14 @@ class HostStream:
                 self.occupancy.append(q.qsize())
                 if item is end:
                     break
-                batch, event, w = item
+                kind, batch, event, w = item
                 if event is not None:
                     current = torch.cuda.current_stream(self.device)
                     current.wait_event(event)
                     for t in batch.values():
                         t.record_stream(current)
                 batch["weight"] = w
-                yield batch
+                yield kind, batch
             if failure:
                 raise failure[0]
         finally:

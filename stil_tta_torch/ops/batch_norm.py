@@ -253,7 +253,12 @@ def bn_stats(x2d: Tensor) -> Tuple[Tensor, Tensor]:
     CPU tensors take :func:`bn_stats_plain`. A CUDA tensor must be
     2-D, contiguous, bfloat16 or float32 and non-empty; it launches the
     kernel on the current stream, and ``bn_stats.launches`` counts the
-    launches."""
+    launches. The launch can be captured in a CUDA graph (the plan's
+    occupancy query is cached by its first, eager call; the partial rows
+    and the output come from the caching allocator, the graph's pool
+    under capture); a replay launches without Python, and
+    ``train/multistep.py:GraphedStep`` adds the captured count to
+    ``launches`` at each replay."""
     if x2d.device.type == "cpu":
         return bn_stats_plain(x2d)
     if x2d.device.type != "cuda":
@@ -281,7 +286,8 @@ def bn_bwd_reduce(x2d: Tensor, dy2d: Tensor, mean: Tensor,
     must be 2-D, contiguous, of one shape and one dtype (bfloat16 or
     float32), and mean and inv float32 with C contiguous values, all on
     one device; it launches the kernel on the current stream, and
-    ``bn_bwd_reduce.launches`` counts the launches."""
+    ``bn_bwd_reduce.launches`` counts the launches (under capture and
+    replay as :func:`bn_stats`)."""
     if x2d.device.type == "cpu":
         return bn_bwd_reduce_plain(x2d, dy2d, mean, inv)
     if x2d.device.type != "cuda":

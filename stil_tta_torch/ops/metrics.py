@@ -4,7 +4,8 @@ counters, and the bucketised AUROC of binary tasks (class-1 scores in
 8192 histogram buckets, ties counted one half).
 
 Each state is a small dataclass of tensors on the run's device; an
-update returns a new state and needs no host sync."""
+update adds to its tensors in place (a captured train step holds their
+addresses), returns the same state and needs no host sync."""
 
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ def accuracy_update(state: AccuracyState, preds: Tensor,
     else:
         pred_cls = (preds >= 0.5).long()
     hit = (pred_cls == labels.long()).float()
-    return AccuracyState(state.correct + hit.sum(),
-                         state.total + float(hit.numel()))
+    state.correct.add_(hit.sum())
+    state.total.add_(float(hit.numel()))
+    return state
 
 
 def accuracy_compute(state: AccuracyState) -> float:
@@ -66,9 +68,9 @@ def auroc_update(state: AUROCState, preds: Tensor,
     k = state.pos.shape[0]
     idx = torch.floor(preds.float().clamp(0.0, 1.0) * (k - 1) + 0.5).long()
     # 0/1 counts: the float sums are exact whatever the order
-    pos = state.pos.index_add(0, idx, (labels == 1).float())
-    neg = state.neg.index_add(0, idx, (labels == 0).float())
-    return AUROCState(pos, neg)
+    state.pos.index_add_(0, idx, (labels == 1).float())
+    state.neg.index_add_(0, idx, (labels == 0).float())
+    return state
 
 
 def auroc_compute(state: AUROCState) -> float:

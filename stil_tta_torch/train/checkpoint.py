@@ -27,6 +27,7 @@ import torch
 
 from stil_tta_torch.algorithms.base import DAState
 from stil_tta_torch.ops.metrics import AccuracyState, AUROCState
+from stil_tta_torch.train import optim
 
 # the buffers a state may hold; each is saved where the state has it
 _BUFFERS = ("prototypes", "prototypes_sum", "prototypes_count", "log_count",
@@ -60,7 +61,7 @@ def state_tree(state) -> dict:
         "generator": state.generator.get_state(),
         "default_generator": _default_rng_state(device),
         "da": None if state.da is None else {"queue": state.da.queue,
-                                             "ptr": state.da.ptr},
+                                             "ptr": int(state.da.ptr)},
         "log_sums": state.log_sums,
         "step": state.step,
     }
@@ -100,11 +101,12 @@ def restore_checkpoint(directory: os.PathLike, state, name: str = "best"):
     state.net.load_state_dict(payload["net"])
     if state.ema is not None:
         state.ema.load_state_dict(payload["ema"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    optim.load_state(state.optimizer, payload["optimizer"])
     state.generator.set_state(payload["generator"].cpu())
     _set_default_rng_state(device, payload["default_generator"])
     if payload["da"] is not None:
-        state.da = DAState(payload["da"]["queue"], int(payload["da"]["ptr"]))
+        state.da = DAState(payload["da"]["queue"], torch.tensor(
+            int(payload["da"]["ptr"]), dtype=torch.long, device=device))
     state.log_sums = dict(payload["log_sums"])
     state.step = int(payload["step"])
     for k in _BUFFERS:

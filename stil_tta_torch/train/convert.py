@@ -398,4 +398,6 @@ def load_train_state(state, carried: Dict[str, object]) -> None:
             setattr(state, k, like(carried[k], getattr(state, k)))
     if state.da is not None:
         queue, ptr = carried["da"]
-        state.da = DAState(like(queue, state.da.queue), ptr)
+        state.da = DAState(like(queue, state.da.queue),
+                           torch.tensor(int(ptr), dtype=torch.long,
+                                        device=state.da.ptr.device))

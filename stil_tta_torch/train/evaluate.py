@@ -23,7 +23,15 @@ the train batches come from :class:`HostStream` (the native gather into
 pinned buffers, a copy stream) as batch-shaped virtual caches, the
 labelled and unlabelled tabular tables stay on the device as the
 corruption marginals, and validation and test stay in a
-:class:`DeviceCache`.
+:class:`DeviceCache`. ``steps_per_dispatch: K > 1`` runs the epoch's
+steps K at a time (``train/multistep.py``): full groups of K (index
+blocks from :func:`~stil_tta_torch.train.multistep.chunk_indices`, or
+:meth:`HostStream.epoch_blocks`' stacked blocks) go to one dispatch, the
+tail runs as single steps, as in the JAX package. On the card STiL's
+family replays a captured step (the route is chosen from the config
+before anything is captured and printed once); the other families, and
+every family on the CPU, run each block's steps one by one. The result is
+that of single steps.
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -48,6 +56,7 @@ from stil_tta_torch.data.loader import (VIRTUAL_CACHE_KEYS, CyclingEpochView,
                                         CyclingSampler, DeviceCache,
                                         EpochSampler, HostStream,
                                         WeightedSampler)
+from stil_tta_torch.train.multistep import chunk_indices, make_dispatcher
 
 
 def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
@@ -233,6 +242,9 @@ def evaluate(cfg, logdir: Optional[Path] = None,
             return torch.tensor(np.asarray(src.tabular, np.float32),
                                 device=algo.device)
         marg_l, marg_u = marginal(src_l), marginal(src_u)
+        # one pair for the run: a captured step reads these very tensors
+        il = torch.arange(l_batch, dtype=torch.int32, device=algo.device)
+        iu = torch.arange(u_batch, dtype=torch.int32, device=algo.device)
     else:
         cache_l = DeviceCache(src_l, device=algo.device).as_dict()
         cache_u = DeviceCache(src_u, device=algo.device).as_dict()
@@ -261,11 +273,15 @@ def evaluate(cfg, logdir: Optional[Path] = None,
             load_torch_state_dict(cfg.checkpoint_SAINT))
         print(f"Loaded SAINT weights ({n_used} tensors) from "
               f"{cfg.checkpoint_SAINT}")
-    # The JAX package may scan steps_per_dispatch steps in one dispatch
-    # (``train/multistep.py``); that is the very same step, so here the
-    # steps run one by one.
     train_step = algo.make_train_step()
     eval_step = algo.make_eval_step()
+    # steps_per_dispatch: K steps a dispatch (``train/multistep.py``), the
+    # route fixed here, before any capture
+    spd = int(cfg.steps_per_dispatch or 1)
+    dispatch = None
+    if spd > 1:
+        dispatch, why = make_dispatcher(cfg, algo, train_step)
+        print(f"steps_per_dispatch {spd}: {dispatch.route} route ({why})")
 
     def make_samplers(epoch_idx: int):
         """Samplers seeded by (run seed, epoch): the data order is a
@@ -305,26 +321,48 @@ def evaluate(cfg, logdir: Optional[Path] = None,
         t0 = time.time()
         l_sampler, u_sampler = make_samplers(epoch)
         if host_stream:
-            il = torch.arange(l_batch, dtype=torch.int32, device=algo.device)
-            iu = torch.arange(u_batch, dtype=torch.int32, device=algo.device)
-            streams = (
-                HostStream(src_l, CyclingEpochView(l_sampler,
-                                                   steps_per_epoch),
-                           device=algo.device).epoch(),
-                HostStream(src_u, u_sampler, device=algo.device).epoch())
+            l_stream = HostStream(src_l, CyclingEpochView(l_sampler,
+                                                          steps_per_epoch),
+                                  device=algo.device)
+            u_stream = HostStream(src_u, u_sampler, device=algo.device)
+            if dispatch is None:
+                streams = [s.epoch() for s in (l_stream, u_stream)]
+            else:
+                streams = [s.epoch_blocks(spd, steps_per_epoch)
+                           for s in (l_stream, u_stream)]
             with contextlib.ExitStack() as stack:
                 for stream in streams:
                     stack.callback(stream.close)
                 # the labelled view ends the epoch at steps_per_epoch
                 # (``limit_train_batches``)
-                for bl, bu in zip(*streams):
+                if dispatch is None:
+                    items = (("single", bl, bu) for bl, bu in zip(*streams))
+                else:
+                    items = ((kind, bl, bu)
+                             for (kind, bl), (_, bu) in zip(*streams))
+                for kind, bl, bu in items:
                     vl = {k: bl[k] for k in VIRTUAL_CACHE_KEYS if k in bl}
                     vu = {k: bu[k] for k in VIRTUAL_CACHE_KEYS if k in bu}
-                    vl["marginal"], vu["marginal"] = marg_l, marg_u
-                    train_step(state, vl, vu, il, iu, epoch)
+                    if kind == "single":
+                        vl["marginal"], vu["marginal"] = marg_l, marg_u
+                        train_step(state, vl, vu, il, iu, epoch)
+                        continue
+                    dispatch(state, [
+                        ({**{k: v[i] for k, v in vl.items()},
+                          "marginal": marg_l},
+                         {**{k: v[i] for k, v in vu.items()},
+                          "marginal": marg_u}, il, iu)
+                        for i in range(spd)], epoch)
         else:
             pairs = [(l_sampler.next()[0], idx_u)
                      for idx_u, _ in u_sampler.epoch()][:steps_per_epoch]
+            if dispatch is not None:
+                blocks, pairs = chunk_indices(pairs, spd)
+                for il_k, iu_k in blocks:
+                    il_k = torch.from_numpy(il_k).to(algo.device)
+                    iu_k = torch.from_numpy(iu_k).to(algo.device)
+                    dispatch(state, [(cache_l, cache_u, il_k[i], iu_k[i])
+                                     for i in range(spd)], epoch)
             for idx_l, idx_u in pairs:
                 train_step(state, cache_l, cache_u,
                            torch.from_numpy(idx_l).to(algo.device),

@@ -12,6 +12,16 @@ operation. The learning rate is set per epoch on the param groups
 (:func:`set_learning_rate`); the schedules are host-side functions of the
 epoch, copied from the JAX package.
 
+A run whose train step is captured (``train/multistep.py``) builds its
+optimizer ``capturable``: the learning rate is a device tensor that
+:func:`set_learning_rate` fills, the step counts live on the card
+(``torch.optim.Adam(capturable=True)``; :class:`Adam` counts on the
+parameters' device) and the moments are updated in place. The same
+optimizer then runs that run's eager steps too, so an eager step and a
+replay do the same arithmetic. Every other optimizer (the CPU's, the
+routes that are not captured, test-time adaptation) keeps a number for
+its learning rate and its step counts on the host.
+
 The encoder freeze of ``finetune_strategy: frozen`` (JAX
 ``optax.masked(set_to_zero, encoder_freeze_fn)`` after weight decay, Adam
 and the learning rate) is a second param group, ``frozen``, at learning
@@ -41,13 +51,19 @@ class Adam(torch.optim.Optimizer):
     ``b1 * mu`` is), the update is taken from that value, and only then
     is the moment rounded to ``mu_dtype`` for storage. The interface is
     ``torch.optim.Adam``'s (param groups, ``lr``, ``betas``, ``eps``,
-    ``weight_decay``, ``state_dict``)."""
+    ``weight_decay``, ``state_dict``, ``capturable``). A ``capturable``
+    group takes a 0-dim tensor ``lr`` on the parameters' device and
+    counts its steps there (bias corrections ``powf`` on the card);
+    otherwise the count is a host tensor and the bias corrections numpy
+    float32 powers. The moments are written in place either way."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 mu_dtype: torch.dtype = torch.bfloat16):
+                 mu_dtype: torch.dtype = torch.bfloat16,
+                 capturable: bool = False):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=weight_decay))
+                                      weight_decay=weight_decay,
+                                      capturable=capturable))
         self.mu_dtype = mu_dtype
 
     def load_state_dict(self, state_dict) -> None:
@@ -76,15 +92,25 @@ class Adam(torch.optim.Optimizer):
                 grads = torch._foreach_add(grads,
                                            torch._foreach_mul(params, wd))
             states = [self.state[p] for p in params]
+            capturable = group["capturable"]
             for p, st in zip(params, states):
                 if not st:
-                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["step"] = torch.zeros(
+                        (), dtype=torch.float32,
+                        device=p.device if capturable else "cpu")
                     st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
                     st["exp_avg_sq"] = torch.zeros_like(p)
-                st["step"] += 1
-            count = np.float32(states[0]["step"])
+            torch._foreach_add_([st["step"] for st in states], 1.0)
             # optax: (1 - b1) * g + b1 * mu, where b1 * mu is a mu_dtype
             # product (b1 rounded to mu_dtype); bias corrections in float32
+            if capturable:   # powf on the card
+                count = states[0]["step"]
+                bc1 = 1 - torch.pow(b1, count)
+                bc2 = 1 - torch.pow(b2, count)
+            else:
+                count = np.float32(states[0]["step"])
+                bc1 = float(np.float32(1) - np.float32(b1) ** count)
+                bc2 = float(np.float32(1) - np.float32(b2) ** count)
             b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
             mu = torch._foreach_add(
                 torch._foreach_mul(grads, 1 - b1),
@@ -93,15 +119,12 @@ class Adam(torch.optim.Optimizer):
             nu = torch._foreach_add(
                 torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
                 torch._foreach_mul([st["exp_avg_sq"] for st in states], b2))
-            bc1 = float(np.float32(1) - np.float32(b1) ** count)
-            bc2 = float(np.float32(1) - np.float32(b2) ** count)
             denom = torch._foreach_add(
                 torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
             upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
             torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
-            for st, m, v in zip(states, mu, nu):
-                st["exp_avg"] = m.to(self.mu_dtype)
-                st["exp_avg_sq"] = v
+            torch._foreach_copy_([st["exp_avg"] for st in states], mu)
+            torch._foreach_copy_([st["exp_avg_sq"] for st in states], nu)
         return None
 
 
@@ -124,12 +147,18 @@ def frozen_parameters(cfg, net: torch.nn.Module
 def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                     weight_decay: float = 0.0,
                     frozen: Iterable[torch.nn.Parameter] = (),
-                    mu_dtype=None) -> torch.optim.Optimizer:
+                    mu_dtype=None, capturable: bool = False
+                    ) -> torch.optim.Optimizer:
     """torch Adam with the JAX package's defaults, or :class:`Adam` when
     ``mu_dtype`` (``adam_mu_dtype``) names a storage dtype of the first
     moment. The parameters of ``params`` that are in ``frozen`` go into a
-    second group at learning rate 0 marked ``frozen``."""
+    second group at learning rate 0 marked ``frozen``. ``capturable``
+    (for a step that is captured: the module docstring) makes the
+    learning rate a float32 tensor on the parameters' device and keeps
+    the step counts there."""
     params = list(params)
+    if capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
     skip = {id(p) for p in frozen}
     if skip:
         params = [{"params": [p for p in params if id(p) not in skip]},
@@ -139,9 +168,41 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
         dtype = getattr(torch, str(mu_dtype)) if isinstance(mu_dtype, str) \
             else mu_dtype
         return Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                    weight_decay=weight_decay, mu_dtype=dtype)
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                    weight_decay=weight_decay, mu_dtype=dtype,
+                    capturable=capturable)
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=weight_decay, capturable=capturable)
+    # the same instance runs eagerly and captured: torch's one-time
+    # warning for a capturable optimizer stepped outside a capture does
+    # not apply
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
+
+
+def load_state(opt: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``opt.load_state_dict(state_dict)`` that keeps ``opt``'s mode.
+    ``load_state_dict`` takes every group's settings from the saved
+    groups, ``capturable`` and ``lr`` among them: a checkpoint of a run
+    that was not capturable (the CPU's, a route that is not captured)
+    would leave a capturable optimizer with a number for its learning
+    rate, which a capture bakes in for good, and one of a capturable run
+    would give the others a tensor that torch's eager Adam refuses. So
+    each group keeps its ``capturable`` flag and the kind of its learning
+    rate (a capturable group its very tensor, filled with the saved
+    value), and the step counts go where that mode keeps them."""
+    kept = [(group.get("capturable", False), group["lr"])
+            for group in opt.param_groups]
+    opt.load_state_dict(state_dict)
+    for group, (capturable, lr) in zip(opt.param_groups, kept):
+        value = float(group["lr"])
+        group["capturable"] = capturable
+        group["lr"] = lr.fill_(value) if isinstance(lr, torch.Tensor) \
+            else value
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if capturable else "cpu")
 
 
 def step(opt: torch.optim.Optimizer) -> None:
@@ -162,9 +223,15 @@ def step(opt: torch.optim.Optimizer) -> None:
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
-    """``lr`` on every param group but the ``frozen`` one."""
+    """``lr`` on every param group but the ``frozen`` one: written into a
+    group's device tensor where it holds one (a capturable optimizer's),
+    in place, so that a captured step reads it."""
     for group in opt.param_groups:
-        if not group.get("frozen"):
+        if group.get("frozen"):
+            continue
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
             group["lr"] = lr
 
 

@@ -127,7 +127,7 @@ def run():
         out["micro"] = train_state_from_jax(jstate)
         out["port_micro"] = {
             "net": {k: v.clone() for k, v in pstate.net.state_dict().items()},
-            "da": (pstate.da.queue.clone(), pstate.da.ptr),
+            "da": (pstate.da.queue.clone(), int(pstate.da.ptr)),
             "extra": {k: v if isinstance(v, int) else v.clone()
                       for k, v in pstate.extra.items()}}
         jstate = jmicro(jstate, jcl, jcu, il, iu, epoch)

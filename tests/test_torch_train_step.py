@@ -1,5 +1,7 @@
 """One STiL train step of the port against the JAX package's, on both
-sides of ``start_epoch``, then a short trajectory through ``epoch_end``.
+sides of ``start_epoch``, then a short trajectory through ``epoch_end``,
+and four steps run as a ``steps_per_dispatch`` block of 3 and a tail of 1
+(``train/multistep.py``) while the DA ring's device position wraps.
 
 Setup: ``resnet18`` on 32x32 images, 4 labelled + 12 unlabelled rows,
 small widths, float64 on both sides (JAX in x64), Adam, DA on,
@@ -35,6 +37,7 @@ from stil_tta_torch.config import load_config
 from stil_tta_torch.ops.batch_norm import BatchNorm2d
 from stil_tta_torch.train.convert import (load_train_state,
                                           train_state_from_jax)
+from stil_tta_torch.train.multistep import EagerSteps, chunk_indices
 from stil_tta_tpu.algorithms.base import DAState as JDAState
 from stil_tta_tpu.algorithms.stil import STiL as JaxSTiL
 from stil_tta_tpu.algorithms.stil import STiLState as JSTiLState
@@ -208,7 +211,42 @@ def run():
         pstate, plogs = algo.epoch_end(pstate)
         out["epoch_logs"] = (jlogs, plogs)
         out["trajectory"] = both(jstate, pstate, 2)
+        out["wrap"] = _wrapping_dispatch(j0, port_state, jstep, jcl, jcu,
+                                         cl, cu, il, iu)
     return out
+
+
+WRAP_START, WRAP_STEPS = 254, 4   # DA slots 254, 255, then 0, 1
+
+
+def _wrapping_dispatch(j0, port_state, jstep, jcl, jcu, cl, cu, il, iu):
+    """From ``j0`` with the DA ring's position at WRAP_START: WRAP_STEPS
+    JAX steps, and the port's through a dispatch of 3 (``EagerSteps``,
+    the route of every dispatch on the CPU) and a tail of 1, each fed the
+    JAX step's case-3 routing draw."""
+    jstate = j0.replace(da=JDAState(
+        j0.da.queue, jnp.asarray(WRAP_START, jnp.int32)))
+    algo, pstate = port_state(train_state_from_jax(jstate))
+    masks = []
+    for _ in range(WRAP_STEPS):
+        masks.append(torch.tensor(_mask_rand(jstate)))
+        jstate = jstep(jstate, jcl, jcu, il, iu, jnp.asarray(1, jnp.int32))
+    step = algo.make_train_step()
+
+    def routed(state, cache_l, cache_u, idx_l, idx_u, epoch):
+        return step(state, cache_l, cache_u, idx_l, idx_u, epoch,
+                    mask_rand=masks.pop(0))
+
+    blocks, tail = chunk_indices(
+        [(np.arange(B_L), np.arange(B_U))] * WRAP_STEPS, 3)
+    for il_k, iu_k in blocks:
+        il_k, iu_k = torch.from_numpy(il_k), torch.from_numpy(iu_k)
+        EagerSteps(routed)(pstate, [(cl, cu, il_k[i], iu_k[i])
+                                    for i in range(3)], 1)
+    for idx_l, idx_u in tail:
+        routed(pstate, cl, cu, torch.from_numpy(idx_l),
+               torch.from_numpy(idx_u), 1)
+    return jstate, pstate
 
 
 def _compare_states(jstate, pstate, logs=True, param_atol=PARAM_ATOL):
@@ -268,4 +306,16 @@ def test_short_trajectory_through_epoch_end_matches_jax(run):
     # epoch_end replaced the prototypes by the epoch's normalised sums
     assert not torch.equal(pstate.prototypes,
                            run["initial"]["prototypes"].double())
+    _compare_states(jstate, pstate)
+
+
+def test_dispatch_with_a_wrapping_da_ring_matches_jax(run):
+    """A ``steps_per_dispatch`` block of 3 and a tail of 1 from the same
+    state as JAX's four steps, the DA position (a device tensor) wrapping
+    from slot 255 to 0 inside the block."""
+    jstate, pstate = run["wrap"]
+    assert pstate.step == WRAP_STEPS == int(jstate.step)
+    assert int(pstate.da.ptr) == (WRAP_START + WRAP_STEPS) % 256 \
+        == int(jstate.da.ptr)
+    assert pstate.da.ptr.device == pstate.da.queue.device
     _compare_states(jstate, pstate)
