@@ -167,8 +167,8 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     bf16 and int8, 700 rows (a padded tail): the largest probability
     difference and equal argmaxes; (c) a one-rank NCCL group through the
     same path, two tiny steps; (d) the dry run's ten families at its tiny
-    shapes on 2 ranks; (a)-(b), (c) and (d) run side by side, so the host
-    times of (a) are read beside two other processes.
+    shapes on 2 ranks; (a)-(b) run alone on the card, then (c) and (d)
+    side by side, with phase 21 (e) and (c) in this process beside them.
 19. The host stream and the rest of the encoder zoo: (a) splits of the
     DVM widths written from the seed (32,768 unlabelled and 4,096
     labelled rows of 128² x 3 uint8, read back memmapped), then
@@ -230,16 +230,30 @@ without one; it never runs on the CPU. Phases, each fatal on failure:
     ``bn_bwd_reduce`` kernels a replayed step, the Python counters in
     agreement, one graph launch a step, the host's launch calls a step;
     a step with a planted host sync fails its capture, and the next
-    eager step draws its random numbers again; (c) ``evaluate``
-    in float32 with phase 6's flags for one epoch of 8 steps at
-    ``steps_per_dispatch`` 1 and 3 (two dispatches and a tail of two)
-    through the device cache, and 3 through the host stream: the last
-    checkpoints bitwise equal, 424 + 424 launches each; (d) dispatches of
-    32 (the YAMLs' value): host ms a step eager and graphed (median of
-    three), device busy and idle share, the host's launch calls, the
-    capture's time and pool, peak memory; and FreeMatch under
-    ``steps_per_dispatch: 32`` on the eager route, one dispatch of 32
-    steps (53 + 53 a step).
+    eager step draws its random numbers again; (d) dispatches of 16:
+    host ms a step eager and graphed (median of three), device busy and
+    idle share, the host's launch calls, the capture's time and pool,
+    peak memory; then FreeMatch under ``steps_per_dispatch: 32`` on the
+    graph route, one dispatch of 8 steps (53 + 53 a step), and STiL with
+    ``teacher_int8``, the route left eager, one eager dispatch of 2; (f)
+    CoMatch and STiL at ``micro_batches`` 4 at full width in bf16:
+    dispatches of 4 steps eager against graphed, host ms a step (median
+    of three), device busy and idle share, the host's launch calls and
+    BN kernels a step (a profiled dispatch of 2), the capture's time and
+    pool, peak memory (an eager dispatch is profiled without operator
+    events, in (d) too); (c) ``evaluate`` in float32 with phase 6's flags
+    for one epoch of 8 steps at ``steps_per_dispatch`` 1 and 3 (two
+    dispatches and a tail of two) through the device cache, and 3
+    through the host stream: the last checkpoints bitwise equal, 424 +
+    424 launches each; (e) at a small width (ResNet-18 on 32², batch
+    16): each newly captured route (the six FixMatch YAMLs, MMatch,
+    CoTrain, CoTrain_SAINT, TabularEval, STiL at ``micro_batches`` 4)
+    from one seed, two dispatches of 3 across ``start_epoch`` eager
+    against graphed, every state tensor bitwise equal (the queues' and
+    banks' positions among them), and the BN kernels a replayed step in
+    the profile at the route's count. (e) and then (c) run beside phase
+    18's NCCL and tiny dry runs (no check reads a time of theirs), the
+    rest in the order (a), (b), (d), (f) at the end.
 
 Each phase's wall time and the total are printed as the phases end.
 
@@ -926,10 +940,10 @@ def check_mmatch_bank(cfg, dev) -> None:
     ``(ptr + min(512, 640 - ptr)) % 640``: 0 -> 512 -> 0."""
     algo, step, batch = step_setup(cfg, dev)
     state = algo.init_state(0)
-    ptrs = [state.extra["ptr"]]
+    ptrs = [int(state.extra["ptr"])]
     for _ in range(2):
         step(state, *batch, 1)
-        ptrs.append(state.extra["ptr"])
+        ptrs.append(int(state.extra["ptr"]))
     torch.cuda.synchronize()
     ex = state.extra
     finite = all(bool(torch.isfinite(t).all()) for t in (
@@ -1021,10 +1035,11 @@ def check_comatch_buffers(cfg, dev) -> None:
     state = algo.init_state(0)
     before = {k: v.clone() for k, v in state.ema.named_buffers()}
     ex = state.extra
-    pos = [(ex["ptr_s"], ex["ptr_w"], ex["hist_len"])]
+    pos = [tuple(int(ex[k]) for k in ("ptr_s", "ptr_w", "hist_len"))]
     for _ in range(2):
         step(state, *batch, 1)
-        pos.append((ex["ptr_s"], ex["ptr_w"], ex["hist_len"]))
+        pos.append(tuple(int(ex[k]) for k in ("ptr_s", "ptr_w",
+                                                 "hist_len")))
     torch.cuda.synchronize()
     kept = all(torch.equal(v, before[k])
                for k, v in state.ema.named_buffers())
@@ -1729,11 +1744,12 @@ def warm_start_phase(dev) -> dict:
     return {"stil_frozen_train": launches}
 
 
-def _dryruns(jobs: dict) -> dict:
+def _dryruns(jobs: dict, meanwhile=None) -> dict:
     """``stil_tta_torch.tools.dryrun_multichip`` on the card once for each
     tag of ``jobs`` (its arguments), all started together; the PASS lines
-    logged, each run's results returned by tag. Fails unless every case of
-    every run passed."""
+    logged, each run's results returned by tag. ``meanwhile`` (if given)
+    runs in this process while they do. Fails unless every case of every
+    run passed."""
     import tempfile
     t0 = time.perf_counter()
     runs = {}
@@ -1743,6 +1759,14 @@ def _dryruns(jobs: dict) -> dict:
             [sys.executable, "-m", "stil_tta_torch.tools.dryrun_multichip",
              "--device", "cuda", "--out", out, *args],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    if meanwhile is not None:
+        try:
+            meanwhile()
+        except BaseException:
+            for _, _, proc in runs.values():
+                proc.kill()
+                proc.wait()
+            raise
     results, failed = {}, []
     for tag, (out, args, proc) in runs.items():
         stdout, stderr = proc.communicate(timeout=900)
@@ -1764,18 +1788,20 @@ def _dryruns(jobs: dict) -> dict:
     return results
 
 
-def data_parallel_phase() -> dict:
+def data_parallel_phase(clock, meanwhile=None) -> dict:
     """Phase 18: the data-parallel slice on the one card (see the module's
-    docstring); returns the per-rank launches of the 2-rank STiL step."""
+    docstring); returns the per-rank launches of the 2-rank STiL step.
+    ``meanwhile`` runs in this process beside (c) and (d)."""
     # (a), (b) at full width alone on the card, so that its host times and
     # collectives share are read without another process beside it; then
     # (c) NCCL alone on the card and (d) the tiny families over gloo, side
-    # by side
+    # by side, with ``meanwhile`` (no timing of theirs is read)
     runs = _dryruns({"full width": [
         "--ranks", "2", "--scale", "full", "--profile", "--cases", "STiL",
         "serve", "serve[int8]"]})
+    clock.lap("18 (a, b) data parallel at full width, alone")
     runs.update(_dryruns({"nccl": ["--ranks", "1", "--cases", "STiL"],
-                          "tiny": ["--ranks", "2"]}))
+                          "tiny": ["--ranks", "2"]}, meanwhile))
     full = {r["case"]: r for r in runs["full width"]}
     r = full["STiL"]
     expected = [53, 53]   # (bn_stats, bn_bwd_reduce) a rank-step
@@ -2778,7 +2804,13 @@ def tta_demo_phase() -> dict:
 DISPATCH_K = 8        # (a): the steps of each compared dispatch
 PROFILED_K = 4        # (b), (d): the replays of the profiled dispatch
 TIMING_K = 32         # (d): the YAMLs' steps_per_dispatch
+TIMED_K = 16          # (d): the steps of each timed STiL dispatch
+ROUTE_K = 8           # (d): FreeMatch's graphed dispatch
+EAGER_K = 2           # (d): teacher_int8's eager dispatch
 SPD_EVAL = 3          # (c): 8 steps an epoch, two blocks and a tail of 2
+SMALL_K = 3           # (e): the steps of each compared dispatch
+FULL_K = 4            # (f): the steps of each timed dispatch
+PROFILED_F = 2        # (f): the steps of each profiled dispatch
 
 
 def _dispatch_rows(caches, block) -> list:
@@ -2828,15 +2860,19 @@ def _snapshot(state) -> dict:
     return {k: t.detach().clone() for k, t in state_tensors(state).items()}
 
 
-def _profiled_dispatch(dispatch, state, rows) -> dict:
+def _profiled_dispatch(dispatch, state, rows, cpu_ops: bool = True) -> dict:
     """One dispatch under the profiler: kernels on the card, the BN
     kernels among them, device busy, graph launches and the host's launch
-    calls (the runtime's kernel and graph launches, copies and fills)."""
+    calls (the runtime's kernel and graph launches, copies and fills).
+    ``cpu_ops=False`` records no operator events: an eager dispatch's
+    profile is then read much faster, with the same kernels and runtime
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         dispatch(state, rows, 1)
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -2857,6 +2893,20 @@ def _profiled_dispatch(dispatch, state, rows) -> dict:
                 w in e.key for w in ("Launch", "Memcpy", "Memset")))}
 
 
+def full_width_data(dev) -> dict:
+    """Phase 6's splits on the card (``caches``), their field lengths and
+    the (idx_l, idx_u) pairs of epoch 2 as ``evaluate`` draws them."""
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.data.loader import DeviceCache
+    src = load_sources(load_config("config_dvm_STiL", TRAIN_OVERRIDES))
+    n_l, n_u = len(src["train_labelled"]), len(src["train_unlabelled"])
+    return {"caches": [DeviceCache(src[k], device=dev).as_dict()
+                       for k in ("train_labelled", "train_unlabelled")],
+            "field_lengths": src["train_labelled"].field_lengths,
+            "pairs": _epoch_pairs(n_l, n_u, 2)}
+
+
 def dispatch_equality(dev, smi: str) -> dict:
     """Phase 21 (a), (b): two bfloat16 STiL states from one seed at full
     width; one runs two dispatches of DISPATCH_K eager steps (epoch 0,
@@ -2868,16 +2918,12 @@ def dispatch_equality(dev, smi: str) -> dict:
     Python counters in agreement, one graph launch a step."""
     from stil_tta_torch.algorithms.stil import STiL
     from stil_tta_torch.config import load_config
-    from stil_tta_torch.data.datasets import load_sources
-    from stil_tta_torch.data.loader import DeviceCache
     from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.multistep import EagerSteps, GraphedStep
     cfg = load_config("config_dvm_STiL", TRAIN_OVERRIDES)
-    src = load_sources(cfg)
-    fl = src["train_labelled"].field_lengths
-    caches = [DeviceCache(src[k], device=dev).as_dict()
-              for k in ("train_labelled", "train_unlabelled")]
-    n_l, n_u = len(src["train_labelled"]), len(src["train_unlabelled"])
+    data = full_width_data(dev)
+    fl, caches = data["field_lengths"], data["caches"]
+    n_l, n_u = (int(c["labels"].shape[0]) for c in caches)
     blocks = [_block(_epoch_pairs(n_l, n_u, e), DISPATCH_K) for e in (0, 1)]
     runs = {}
     for route in ("eager", "graph"):
@@ -2927,7 +2973,7 @@ def dispatch_equality(dev, smi: str) -> dict:
             or not e["state"].step == g["state"].step == 2 * DISPATCH_K:
         raise SystemExit("dispatch: generator or step count differs")
     # (b) a replayed dispatch under the profiler
-    pairs = _epoch_pairs(n_l, n_u, 2)
+    pairs = data["pairs"]
     bn_stats.launches = bn_bwd_reduce.launches = 0
     prof = _profiled_dispatch(d, g["state"], _dispatch_rows(
         caches, _block(pairs, PROFILED_K)))
@@ -2952,7 +2998,7 @@ def dispatch_equality(dev, smi: str) -> dict:
 
 def dispatch_timing(eq: dict, smi: str) -> None:
     """Phase 21 (d): host ms a step of the eager and the graphed dispatch
-    of TIMING_K steps (the median of three dispatches, host clock ending
+    of TIMED_K steps (the median of three dispatches, host clock ending
     in a synchronize), device busy and idle share (the graph's from (b)'s
     profiled dispatch, the eager route's from a profiled dispatch of 2),
     the host's launch calls a step; the capture's time and pool, peak
@@ -2965,22 +3011,22 @@ def dispatch_timing(eq: dict, smi: str) -> None:
         state, d = run["state"], run["dispatch"]
         wall = []
         for i in range(3):
-            rows = _dispatch_rows(eq["caches"], _block(pairs, TIMING_K, i))
+            rows = _dispatch_rows(eq["caches"], _block(pairs, TIMED_K, i))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             d(state, rows, 1)
             torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3 / TIMING_K)
+            wall.append((time.perf_counter() - t0) * 1e3 / TIMED_K)
         if route == "graph":
             prof, n = eq["graph_profile"], PROFILED_K
         else:
             n = 2
             prof = _profiled_dispatch(d, state, _dispatch_rows(
-                eq["caches"], _block(pairs, n)))
+                eq["caches"], _block(pairs, n)), cpu_ops=False)
         host = sorted(wall)[1]
         busy, calls = prof["busy_ms"] / n, prof["calls"] / n
         out[route] = {"host_ms": host, "busy_ms": busy, "calls": calls}
-        log(f"[dispatch] (d) bf16, dispatches of {TIMING_K}, {route}: host "
+        log(f"[dispatch] (d) bf16, dispatches of {TIMED_K}, {route}: host "
             f"{host:.3f} ms a step (median of "
             f"{', '.join(f'{w:.3f}' for w in wall)}), device busy "
             f"{busy:.3f} ms a step, idle share {1 - busy / host:.1%} (busy "
@@ -3000,37 +3046,228 @@ def dispatch_timing(eq: dict, smi: str) -> None:
                          "step's or more")
 
 
-def dispatch_eager_route(eq: dict, dev, smi: str) -> None:
-    """Phase 21 (d): a FixMatch family (FreeMatch) under
-    ``steps_per_dispatch: 32`` takes the eager route: one dispatch of
-    TIMING_K steps, each launched eagerly (53 + 53 a step)."""
+def dispatch_routes(eq: dict, dev, smi: str) -> None:
+    """Phase 21 (d): under ``steps_per_dispatch: 32`` FreeMatch takes the graph route (one
+    dispatch of ROUTE_K steps: the warm-up step, the capture, ROUTE_K - 1
+    replays; 53 + 53 a step by the counters) and STiL with
+    ``teacher_int8``, the route left eager, runs a dispatch of EAGER_K
+    steps one by one (53 + 53 a step)."""
     from stil_tta_torch.algorithms.registry import get_algorithm
     from stil_tta_torch.config import load_config
     from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
     from stil_tta_torch.train.multistep import make_dispatcher
-    cfg = load_config("config_dvm_FreeMatch", TRAIN_OVERRIDES + [
-        f"steps_per_dispatch={TIMING_K}"])
-    algo = get_algorithm(cfg.algorithm_name)(cfg, eq["field_lengths"],
-                                             device=dev)
-    state = algo.init_state(0)
-    step = algo.make_train_step()
-    dispatch, why = make_dispatcher(cfg, algo, step)
-    rows = _dispatch_rows(eq["caches"], _block(eq["pairs"], TIMING_K))
-    bn_stats.launches = bn_bwd_reduce.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dispatch(state, rows, 1)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMING_K
-    launches = (bn_stats.launches, bn_bwd_reduce.launches)
-    log(f"[dispatch] (d) FreeMatch, steps_per_dispatch {TIMING_K}: "
-        f"{dispatch.route} route ({why}); one dispatch {ms:.3f} ms a step "
-        f"(host clock, its first steps warm cuDNN), launches {launches} "
-        f"(expected {(53 * TIMING_K,) * 2}); {smi}")
-    if dispatch.route != "eager" or launches != (53 * TIMING_K,) * 2 \
-            or state.step != TIMING_K:
-        raise SystemExit("dispatch: FreeMatch did not run its K steps "
-                         "eagerly")
+    for config, extra, k, route in (
+            ("config_dvm_FreeMatch", [], ROUTE_K, "graph"),
+            ("config_dvm_STiL", ["teacher_int8=true"], EAGER_K, "eager")):
+        cfg = load_config(config, TRAIN_OVERRIDES + extra + [
+            f"steps_per_dispatch={TIMING_K}"])
+        algo = get_algorithm(cfg.algorithm_name)(cfg, eq["field_lengths"],
+                                                 device=dev)
+        state = algo.init_state(0)
+        step = algo.make_train_step()
+        dispatch, why = make_dispatcher(cfg, algo, step)
+        rows = _dispatch_rows(eq["caches"], _block(eq["pairs"], k))
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch(state, rows, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / k
+        launches = (bn_stats.launches, bn_bwd_reduce.launches)
+        log(f"[dispatch] (d) {' '.join([cfg.algorithm_name] + extra)}, "
+            f"steps_per_dispatch {TIMING_K}: {dispatch.route} route "
+            f"({why}); one dispatch of {k} steps {ms:.3f} ms a step (host "
+            f"clock, the first step warms cuDNN{', the capture included' if route == 'graph' else ''}), launches "
+            f"{launches} (expected {(53 * k,) * 2}); {smi}")
+        if dispatch.route != route or launches != (53 * k,) * 2 \
+                or state.step != k:
+            raise SystemExit(f"dispatch: {cfg.algorithm_name} did not take "
+                             f"the {route} route for its {k} steps")
+        del algo, state, step, dispatch
+        torch.cuda.empty_cache()
+
+
+# (e): small width (ResNet-18 on 32x32, batch 16 = 4 + 12), each newly
+# captured route: (name, YAML, overrides, (bn_stats, bn_bwd_reduce) a step)
+SMALL_OVERRIDES = [
+    "dataset=synthetic_dvm", "models=resnet18", "img_size=32",
+    "synthetic_image_size=40", "batch_size=16", "unlabelled_ratio=3",
+    "synthetic_labelled=16", "synthetic_unlabelled=48", "synthetic_val=8",
+    "synthetic_test=8", "num_classes=4", "tabular_embedding_dim=32",
+    "multimodal_embedding_dim=32", "tabular_transformer_num_layers=1",
+    "projection_dim=8", "start_epoch=0", "strict_prototypes=false",
+    "enable_progress_bar=false", "DA=true", "augmentation_rate=1.0",
+    "corruption_rate=0.3", "lr_eval=1.0e-3"]
+R18 = 20                  # ResNet-18's BatchNorms
+SMALL_ROUTES = (
+    ("SimMatch", "config_dvm_SimMatch", ["K=16"], (R18, R18)),
+    ("CoMatch", "config_dvm_CoMatch", ["K=32"], (2 * R18, R18)),
+    ("FreeMatch", "config_dvm_FreeMatch", [], (R18, R18)),
+    ("MultiSimMatch", "config_dvm_MultiSimMatch", ["K=16"], (R18, R18)),
+    ("MultiCoMatch", "config_dvm_MultiCoMatch", ["K=32"], (2 * R18, R18)),
+    ("MultiFreeMatch", "config_dvm_MultiFreeMatch", [], (R18, R18)),
+    ("MMatch", "config_dvm_MMatch", [], (R18, R18)),
+    ("CoTrain_Pseudo", "config_dvm_CoTrain", [], (R18, R18)),
+    ("CoTrain_Pseudo_SAINT", "config_dvm_CoTrain_SAINT", [], (R18, R18)),
+    ("TabularEval", "config_dvm_STiL",
+     ["algorithm_name=TabularEval", "eval_datatype=tabular"], (0, 0)),
+    ("STiL m=4", "config_dvm_STiL", [f"micro_batches={MICRO}"],
+     (MICRO * R18, MICRO * R18)))
+
+
+def dispatch_small_routes(dev, smi: str) -> dict:
+    """Phase 21 (e): each route of SMALL_ROUTES from one seed, eager
+    against graphed: two dispatches of SMALL_K steps (epoch 0, then 1:
+    past ``start_epoch`` every gate flips under replay, MMatch's
+    smoothing too), every state tensor bitwise equal after each (the
+    queues' and banks' positions included), the BN counters alike on
+    both routes; then a graphed dispatch of 2 profiled: the BN kernels a
+    replayed step at the route's count. Returns the launches a step."""
+    import numpy as np
+    from stil_tta_torch.algorithms.registry import get_algorithm
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.data.datasets import load_sources
+    from stil_tta_torch.data.loader import DeviceCache
+    from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
+    from stil_tta_torch.train.multistep import (EagerSteps, GraphedStep,
+                                                choose_route)
+    src = load_sources(load_config("config_dvm_STiL", SMALL_OVERRIDES))
+    caches = [DeviceCache(src[k], device=dev).as_dict()
+              for k in ("train_labelled", "train_unlabelled")]
+    fl = src["train_labelled"].field_lengths
+    rng = np.random.RandomState(0)
+    blocks = [(rng.randint(0, 16, (SMALL_K, 4)).astype(np.int32),
+               rng.randint(0, 48, (SMALL_K, 12)).astype(np.int32))
+              for _ in range(3)]
+    out = {}
+    for name, config, extra, want in SMALL_ROUTES:
+        cfg = load_config(config, SMALL_OVERRIDES + extra)
+        cls = get_algorithm(cfg.algorithm_name)
+        route = choose_route(cls, cfg, dev)
+        runs = {}
+        for graphed in (False, True):
+            algo = cls(cfg, fl, device=dev)
+            torch.manual_seed(0)     # the dropout's generator
+            state = algo.init_state(0)
+            step = algo.make_train_step()
+            d = GraphedStep(algo, step) if graphed else EagerSteps(step)
+            counts = []
+            for epoch in (0, 1):
+                bn_stats.launches = bn_bwd_reduce.launches = 0
+                d(state, _dispatch_rows(caches, blocks[epoch]), epoch)
+                torch.cuda.synchronize()
+                counts.append((bn_stats.launches, bn_bwd_reduce.launches))
+            runs[graphed] = (state, d, counts, _snapshot(state))
+        (es, _, ec, esnap), (gs, gd, gc, gsnap) = runs[False], runs[True]
+        cmp = _compare_states(esnap, gsnap)
+        same_gen = torch.equal(es.generator.get_state(),
+                               gs.generator.get_state())
+        rows = _dispatch_rows(caches, blocks[2])[:2]
+        bn_stats.launches = bn_bwd_reduce.launches = 0
+        prof = _profiled_dispatch(gd, gs, rows)
+        per = (prof["bn"][0] / 2, prof["bn"][1] / 2)
+        log(f"[dispatch] (e) {name}: route {route[0]} ({route[1]}); eager "
+            f"against graphed after two dispatches of {SMALL_K} (epochs 0, "
+            f"1): {cmp['bitwise']} of {cmp['tensors']} state tensors "
+            f"bitwise equal, largest float relative L2 {cmp['rel_l2']:.3e}, "
+            f"integers off {cmp['ints_off']}, generator equal {same_gen}; "
+            f"counters (bn_stats, bn_bwd_reduce) by dispatch eager {ec}, "
+            f"graphed {gc}; replayed step's {gd.launches_per_replay}; "
+            f"profiled kernels a replayed step {per} (expected {want}), "
+            f"{prof['calls'] / 2:.1f} host launch calls a step; capture "
+            f"{gd.capture_s:.2f} s; {smi}")
+        if route[0] != "graph" or not cmp["same_names"] \
+                or cmp["bitwise"] != cmp["tensors"] or not same_gen \
+                or ec != gc or ec != [tuple(SMALL_K * n for n in want)] * 2 \
+                or per != want or prof["bn"] != (bn_stats.launches,
+                                                 bn_bwd_reduce.launches) \
+                or prof["graph_launches"] != 2:
+            raise SystemExit(f"dispatch (e): {name}'s graphed dispatch "
+                             "differs from its eager steps, or its replayed "
+                             "kernels are off")
+        out[name] = per
+        del runs, es, gs, gd
+    return out
+
+
+def dispatch_full_width(eq: dict, dev, smi: str) -> dict:
+    """Phase 21 (f): CoMatch (its momentum encoder adds 53 ``bn_stats``
+    a step) and STiL at ``micro_batches`` MICRO (53 x MICRO of each) at
+    full width, bf16, epoch 1, one state a family that runs the eager
+    route and then the graph route: for each route a warm dispatch of 2
+    (the graph's warm-up step, its capture and a replay; a capture from
+    a dispatch of one step would hold its indices as fixed inputs), then
+    three dispatches of FULL_K steps on the host clock (the median), a
+    dispatch of PROFILED_F steps under the profiler (device busy, idle
+    share, the host's launch calls, the BN kernels, each divided by the
+    steps), the capture's time and pool
+    and the peak memory. The graphed step must make under 1% of the
+    eager step's launch calls."""
+    from stil_tta_torch.algorithms.registry import get_algorithm
+    from stil_tta_torch.config import load_config
+    from stil_tta_torch.train.multistep import EagerSteps, GraphedStep
+    out = {}
+    for name, config, extra, want in (
+            ("CoMatch", "config_dvm_CoMatch", [], (106, 53)),
+            (f"STiL m={MICRO}", "config_dvm_STiL",
+             [f"micro_batches={MICRO}"], (53 * MICRO, 53 * MICRO))):
+        cfg = load_config(config, TRAIN_OVERRIDES + extra)
+        res = {}
+        algo = get_algorithm(cfg.algorithm_name)(cfg, eq["field_lengths"],
+                                                 device=dev)
+        torch.manual_seed(0)
+        state = algo.init_state(0)
+        step = algo.make_train_step()
+        for route in ("eager", "graph"):
+            d = GraphedStep(algo, step) if route == "graph" \
+                else EagerSteps(step)
+            torch.cuda.reset_peak_memory_stats()
+            d(state, _dispatch_rows(eq["caches"], _block(eq["pairs"], 2)), 1)
+            wall = []
+            for i in range(3):
+                rows = _dispatch_rows(eq["caches"],
+                                      _block(eq["pairs"], FULL_K, 2 + i))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d(state, rows, 1)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3 / FULL_K)
+            prof = _profiled_dispatch(d, state, _dispatch_rows(
+                eq["caches"], _block(eq["pairs"], PROFILED_F, 5)),
+                cpu_ops=route == "graph")
+            host = sorted(wall)[1]
+            busy, calls = (prof[k] / PROFILED_F for k in ("busy_ms", "calls"))
+            per = tuple(n / PROFILED_F for n in prof["bn"])
+            peak = torch.cuda.max_memory_allocated()
+            res[route] = {"host_ms": host, "busy_ms": busy, "calls": calls,
+                          "bn": per}
+            extra_log = (f"; capture {d.capture_s:.2f} s, graph pool "
+                         f"{d.pool_bytes / 2**30:.3f} GiB"
+                         if route == "graph" else "")
+            log(f"[dispatch] (f) {name}, bf16, dispatches of {FULL_K}, "
+                f"{route}: host {host:.3f} ms a step (median of "
+                f"{', '.join(f'{w:.3f}' for w in wall)}), device busy "
+                f"{busy:.3f} ms a step, idle share {1 - busy / host:.1%} (a "
+                f"profiled dispatch of {PROFILED_F}); "
+                f"{prof['kernels'] / PROFILED_F:.0f} kernels, {calls:.1f} host "
+                f"launch calls and (bn_stats, bn_bwd_reduce) {per} a step "
+                f"(expected "
+                f"{want}); peak memory {peak / 2**30:.3f} GiB{extra_log}; "
+                f"{smi}")
+            del d
+        del algo, state, step
+        torch.cuda.empty_cache()
+        log(f"[dispatch] (f) {name}: eager / graphed host time a step "
+            f"{res['eager']['host_ms'] / res['graph']['host_ms']:.3f}; "
+            f"{smi}")
+        if any(r["bn"] != want for r in res.values()) \
+                or res["eager"]["calls"] < 1000 \
+                or res["graph"]["calls"] * 100 > res["eager"]["calls"]:
+            raise SystemExit(f"dispatch (f): {name}'s BN kernels are off, or "
+                             "the graphed step makes 1% of the eager step's "
+                             "launch calls or more")
+        out[name] = res
+    return out
 
 
 def dispatch_planted_failure(eq: dict) -> None:
@@ -3131,10 +3368,33 @@ def dispatch_evaluate(smi: str) -> None:
                              f"{key[0]} differs from single steps")
 
 
+def dispatch_beside_dryruns(dev, smi: str) -> dict:
+    """Phase 21 (e), then (c), cuDNN deterministic, each one's wall time
+    logged; they run beside phase 18's NCCL and tiny dry runs, so no
+    check of theirs reads a time. Returns (e)'s launches a replayed step
+    by route."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        small = dispatch_small_routes(dev, smi)
+        t1 = time.perf_counter()
+        log(f"[time] phase 21 (e), beside phase 18 (c, d): {t1 - t0:.1f} s")
+        dispatch_evaluate(smi)
+        log(f"[time] phase 21 (c), beside phase 18 (c, d): "
+            f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {f"graphed_small_{k}": {"bn_stats": int(v[0]),
+                                   "bn_bwd_reduce": int(v[1])}
+            for k, v in small.items()}
+
+
 def dispatch_phase(dev, smi: str, clock) -> dict:
-    """Phase 21: ``steps_per_dispatch`` as replays of one captured STiL
-    step (cuDNN deterministic for the phase); returns the launches of the
-    profiled graphed dispatch."""
+    """Phase 21 but (e) and (c) (:func:`dispatch_beside_dryruns`):
+    ``steps_per_dispatch`` as replays of one captured step (cuDNN
+    deterministic for the phase); returns the launches of the profiled
+    graphed dispatches."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     t21 = time.perf_counter()
@@ -3143,17 +3403,25 @@ def dispatch_phase(dev, smi: str, clock) -> dict:
         launches = eq["launches"]
         clock.lap("21 (a, b) dispatch equality, replayed launches")
         dispatch_timing(eq, smi)
-        dispatch_eager_route(eq, dev, smi)
         dispatch_planted_failure(eq)
+        del eq["runs"]
+        torch.cuda.empty_cache()
+        clock.lap("21 (d) timing, (b) planted failure")
+        dispatch_routes(eq, dev, smi)
+        clock.lap("21 (d) routes")
+        full = dispatch_full_width(eq, dev, smi)
         del eq
         torch.cuda.empty_cache()
-        clock.lap("21 (d) timing, the eager route, (b) planted failure")
-        dispatch_evaluate(smi)
-        clock.lap("21 (c) evaluate")
+        clock.lap("21 (f) CoMatch and micro-batched STiL at full width")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     log(f"[time] phase 21: {time.perf_counter() - t21:.1f} s")
-    return {"stil_graphed_dispatch": launches}
+    out = {"stil_graphed_dispatch": launches}
+    for name, res in full.items():
+        bn = res["graph"]["bn"]
+        out[f"graphed_{name}"] = {"bn_stats": int(bn[0]),
+                                  "bn_bwd_reduce": int(bn[1])}
+    return out
 
 
 def main() -> int:
@@ -3436,9 +3704,14 @@ def main() -> int:
     by_path.update(warm_start_phase(dev))
     clock.lap("17 int8 and warm start")
 
-    # ---- 18. data parallelism
-    by_path.update(data_parallel_phase())
-    clock.lap("18 data parallel")
+    # ---- 18. data parallelism; phase 21 (e) and (c) beside its NCCL and
+    # tiny dry runs (subprocesses whose times no check reads)
+    beside = {}
+    by_path.update(data_parallel_phase(
+        clock, lambda: beside.update(dispatch_beside_dryruns(dev, smi))))
+    by_path.update(beside)
+    clock.lap("18 (c, d) NCCL and tiny dry runs, 21 (e) and (c) beside "
+              "them")
 
     # ---- 19. the host stream, the encoder zoo, grouped int8
     by_path.update(host_stream_phase(dev))

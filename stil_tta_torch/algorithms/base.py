@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -77,6 +77,32 @@ class DAState:
         self.queue.index_copy_(0, self.ptr.view(1),
                                row.view(1, -1).to(self.queue.dtype))
         self.ptr.add_(1).remainder_(self.queue.shape[0])
+
+
+class EpochScalars:
+    """The scalars a train step reads for its epoch (loss gates, a
+    schedule's weights) as 0-dim device tensors, so that a captured
+    step's replays read the epoch's values (``train/multistep.py``).
+    :meth:`fill` writes them, and only when they change."""
+
+    def __init__(self, names: Iterable[str], dtype: torch.dtype, device):
+        self.tensors = {k: torch.zeros((), dtype=dtype, device=device)
+                        for k in names}
+        self._filled: Optional[Dict[str, float]] = None
+
+    def fill(self, values: Dict[str, float]) -> Dict[str, Tensor]:
+        """Write ``values`` into :attr:`tensors` in place and return
+        them; raises when they change inside a CUDA graph capture (the
+        dispatcher fills them before its replays)."""
+        if values != self._filled:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("set_epoch: the epoch's values change "
+                                   "inside a CUDA graph capture")
+            for k, v in values.items():
+                self.tensors[k].fill_(v)
+            self._filled = dict(values)
+        return self.tensors
 
 
 def distribution_alignment(da: DAState, probs: Tensor

@@ -9,7 +9,8 @@ view's embeddings with their pseudo labels (``queue_s``, ``probs_u``,
 (``queue_w``, ``probs_xu``, ``ptr_w``; ``comatch_model.py:80-90``), and
 the DA history (``hist_prob``, a 128-deep ring with its length and write
 position; the mean over the ring's filled slots divides the
-probabilities, ``:270-284``). Past ``start_epoch`` the pseudo labels are
+probabilities, ``:270-284``). Positions and the ring's length are 0-dim
+int64 tensors on the device. Past ``start_epoch`` the pseudo labels are
 smoothed through the weak queue (``:287-293``). The pseudo-label graph
 (the batch's pairwise products, diagonal 1, and the products with
 ``probs_u``) is cut at ``contrast_th`` and normalised; it weighs the
@@ -39,7 +40,8 @@ from torch import nn
 
 from stil_tta_torch.algorithms.base import accumulate_chunks, ema_update
 from stil_tta_torch.algorithms.match_common import (MatchBase, MatchState,
-                                                    ema_source, enqueue)
+                                                    ema_source, enqueue,
+                                                    position)
 from stil_tta_torch.data.loader import gather_batch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.models.layers import acc_dtype
@@ -80,6 +82,13 @@ class CoMatch(MatchBase):
     def uses_ema(self) -> bool:
         return True
 
+    def epoch_values(self, epoch: int) -> Dict[str, float]:
+        """MatchBase's ``gate`` (past ``start_epoch`` it also smooths the
+        pseudo labels through the weak queue) and ``lam_c``, ``min(epoch
+        + 1, lam_c)``."""
+        return {**super().epoch_values(epoch),
+                "lam_c": min(float(epoch) + 1.0, float(self.cfg.lam_c))}
+
     def extra_state(self) -> Dict[str, object]:
         """The queues (``comatch.py:38-57``). The JAX package draws
         ``queue_s`` from ``jax.random.key(11)`` and ``queue_w`` from
@@ -97,9 +106,9 @@ class CoMatch(MatchBase):
         zeros = lambda *s: torch.zeros(s, dtype=adt, device=dev)  # noqa
         return {"queue_s": queue_s / queue_s.norm(dim=0, keepdim=True),
                 "probs_u": zeros(c, k), "queue_w": normal(13),
-                "probs_xu": zeros(c, k), "ptr_s": 0, "ptr_w": 0,
-                "hist_prob": zeros(DA_WINDOW, c), "hist_len": 0,
-                "hist_ptr": 0}
+                "probs_xu": zeros(c, k), "ptr_s": position(0, dev),
+                "ptr_w": position(0, dev), "hist_prob": zeros(DA_WINDOW, c),
+                "hist_len": position(0, dev), "hist_ptr": position(0, dev)}
 
     def make_train_step(self):
         """The train step: ``step(state, cache_l, cache_u, idx_l, idx_u,
@@ -128,17 +137,17 @@ class CoMatch(MatchBase):
         c = self.num_classes
         thr = float(cfg.co_threshold)
         contrast_th = float(cfg.contrast_th)
-        lam_u, lam_c_max = float(cfg.lam_u), float(cfg.lam_c)
+        lam_u = float(cfg.lam_u)
         alpha = float(cfg.alpha)
         temp = float(cfg.co_temperature or cfg.temperature)
-        start_epoch = int(cfg.start_epoch)
         momentum = float(cfg.ema_momentum)
         m_micro = int(cfg.micro_batches or 1)
 
-        def teacher_targets(state: MatchState, x, w, s1, epoch: int):
+        def teacher_targets(state: MatchState, x, w, s1, smooth: Tensor):
             """The momentum encoder's outputs and the targets drawn from
-            them against the pre-step buffers: (f_us1, f_xuw, probs,
-            probs_orig, q, mask, chunk mean)."""
+            them against the pre-step buffers, the pseudo labels smoothed
+            where ``smooth`` is 1: (f_us1, f_xuw, probs, probs_orig, q,
+            mask, chunk mean)."""
             ex = state.extra
             b_l, b_u = x[0].shape[0], w[0].shape[0]
             with train_mode_teacher(state.ema):
@@ -149,17 +158,16 @@ class CoMatch(MatchBase):
                 probs = torch.softmax(logits_m[b_l:b_l + b_u], dim=1)
                 mean_p = probs.mean(0)
                 hist = ex["hist_prob"].clone()
-                hist[ex["hist_ptr"]] = mean_p.to(hist.dtype)
-                hist_len = min(ex["hist_len"] + 1, DA_WINDOW)
+                hist.index_copy_(0, ex["hist_ptr"].view(1),
+                                 mean_p.view(1, -1).to(hist.dtype))
+                hist_len = (ex["hist_len"] + 1).clamp_(max=DA_WINDOW)
                 probs = probs / (hist.sum(0) / hist_len).clamp_min(1e-12)
                 probs = probs / probs.sum(1, keepdim=True)
                 probs_orig = probs
-                if epoch > start_epoch:
-                    a = torch.exp(feats_m[b_l:b_l + b_u] @ ex["queue_w"]
-                                  / temp)
-                    a = a / a.sum(1, keepdim=True).clamp_min(1e-12)
-                    probs = alpha * probs + (1 - alpha) * (
-                        a @ ex["probs_xu"].T)
+                a = torch.exp(feats_m[b_l:b_l + b_u] @ ex["queue_w"] / temp)
+                a = a / a.sum(1, keepdim=True).clamp_min(1e-12)
+                probs = torch.where(smooth.bool(), alpha * probs + (
+                    1 - alpha) * (a @ ex["probs_xu"].T), probs)
                 eye = torch.eye(b_u, dtype=probs.dtype, device=probs.device)
                 q_self = (probs @ probs.T) * (1 - eye) + eye
                 q = torch.cat([q_self, probs @ ex["probs_u"]], dim=1)
@@ -168,7 +176,7 @@ class CoMatch(MatchBase):
                     probs_orig, q, mask, mean_p)
 
         def losses(state: MatchState, logits, feats, y_l, f_us1, probs, q,
-                   mask, epoch: int):
+                   mask, gates: Dict[str, Tensor]):
             b_l = y_l.shape[0]
             f_us0 = feats[b_l:]
             loss_x = cross_entropy(logits[:b_l], y_l)
@@ -184,10 +192,8 @@ class CoMatch(MatchBase):
                 1, keepdim=True).clamp_min(1e-12)
             log_probs = torch.log(pos_probs + 1e-7) * pos_mask
             loss_contrast = (-(log_probs * q_mask).sum(1)).mean()
-            lam_c = min(float(epoch) + 1.0, lam_c_max)
-            gate = float(epoch > start_epoch)
-            total = loss_x + gate * (lam_u * loss_u
-                                     + lam_c * loss_contrast)
+            total = loss_x + gates["gate"] * (
+                lam_u * loss_u + gates["lam_c"] * loss_contrast)
             return total, {"loss": total, "loss_x": loss_x,
                            "loss_u": loss_u, "loss_contrast": loss_contrast,
                            "threshold1_ratio": mask.mean()}
@@ -199,31 +205,30 @@ class CoMatch(MatchBase):
             """The DA slot, then the two enqueues (``comatch.py:208-218``),
             in place."""
             ex = state.extra
-            ex["hist_prob"][ex["hist_ptr"]] = mean_p.to(
-                ex["hist_prob"].dtype)
-            ex["hist_len"] = min(ex["hist_len"] + 1, DA_WINDOW)
-            ex["hist_ptr"] = (ex["hist_ptr"] + 1) % DA_WINDOW
-            ex["ptr_s"] = enqueue(ex["queue_s"], ex["probs_u"], ex["ptr_s"],
-                                  f_us1, probs)
+            ex["hist_prob"].index_copy_(0, ex["hist_ptr"].view(1),
+                                        mean_p.view(1, -1).to(
+                                            ex["hist_prob"].dtype))
+            ex["hist_len"].add_(1).clamp_(max=DA_WINDOW)
+            ex["hist_ptr"].add_(1).remainder_(DA_WINDOW)
+            enqueue(ex["queue_s"], ex["probs_u"], ex["ptr_s"], f_us1, probs)
             onehot = F.one_hot(y_l.long(), c).to(probs_orig.dtype)
-            ex["ptr_w"] = enqueue(ex["queue_w"], ex["probs_xu"],
-                                  ex["ptr_w"], f_xuw,
-                                  torch.cat([onehot, probs_orig]))
+            enqueue(ex["queue_w"], ex["probs_xu"], ex["ptr_w"], f_xuw,
+                    torch.cat([onehot, probs_orig]))
 
         def step(state: MatchState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int) -> MatchState:
-            epoch = int(epoch)
+            gates = self.set_epoch(epoch)
             y_l, y_u, x, w, s0, s1 = self.batch_views(
                 state, cache_l, cache_u, idx_l, idx_u, two_strong=True)
             ema_update(state.ema, ema_source(state.net), momentum, False)
             f_us1, f_xuw, probs, probs_orig, q, mask, mean_p = \
-                teacher_targets(state, x, w, s1, epoch)
+                teacher_targets(state, x, w, s1, gates["gate"])
             state.net.train()
             logits, feats = sharded(state.net, (y_l.shape[0], y_u.shape[0]),
                                     torch.cat([x[0], s0[0]]),
                                     torch.cat([x[1], s0[1]]))
             total, logs = losses(state, logits, feats, y_l, f_us1, probs, q,
-                                 mask, epoch)
+                                 mask, gates)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
@@ -236,7 +241,7 @@ class CoMatch(MatchBase):
         def step_micro(state: MatchState, cache_l: dict, cache_u: dict,
                        idx_l: Tensor, idx_u: Tensor,
                        epoch: int) -> MatchState:
-            epoch = int(epoch)
+            gates = self.set_epoch(epoch)
             ema_update(state.ema, ema_source(state.net), momentum, False)
             state.net.train()
             lacc = {k: 0.0 for k in self.LOG_KEYS}
@@ -247,12 +252,12 @@ class CoMatch(MatchBase):
                 y_l, y_u, x, w, s0, s1 = self.batch_views(
                     state, cache_l, cache_u, il, iu, two_strong=True)
                 f_us1, f_xuw, probs, probs_orig, q, mask, mean_p = \
-                    teacher_targets(state, x, w, s1, epoch)
+                    teacher_targets(state, x, w, s1, gates["gate"])
                 logits, feats = sharded(
                     state.net, (y_l.shape[0], y_u.shape[0]),
                     torch.cat([x[0], s0[0]]), torch.cat([x[1], s0[1]]))
                 total, logs = losses(state, logits, feats, y_l, f_us1,
-                                     probs, q, mask, epoch)
+                                     probs, q, mask, gates)
                 b_l = y_l.shape[0]
                 for k, v in (("mean", mean_p), ("us1", f_us1),
                              ("x", f_xuw[:b_l]), ("u", f_xuw[b_l:]),

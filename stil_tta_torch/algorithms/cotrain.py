@@ -19,7 +19,7 @@ from typing import Dict
 import torch
 
 from stil_tta_torch.algorithms.base import accumulate_chunks, ema_update
-from stil_tta_torch.algorithms.match_common import MatchState
+from stil_tta_torch.algorithms.match_common import MatchBase, MatchState
 from stil_tta_torch.algorithms.mmatch import MMatch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.parallel import sharded
@@ -48,6 +48,10 @@ class CoTrain(MMatch):
     def extra_state(self) -> Dict[str, object]:
         return {}
 
+    def epoch_values(self, epoch: int) -> Dict[str, float]:
+        """MatchBase's ``gate`` alone: no bank smooths the soft labels."""
+        return MatchBase.epoch_values(self, epoch)
+
     def make_train_step(self):
         """The train step: ``step(state, cache_l, cache_u, idx_l, idx_u,
         epoch)`` updates ``state`` in place and returns it.
@@ -73,13 +77,12 @@ class CoTrain(MMatch):
         self._prepare_training()
         alpha, rate_uce = float(cfg.alpha), float(cfg.rate_uce)
         threshold = float(cfg.co_threshold)
-        start_epoch = int(cfg.start_epoch)
         use_ema, eman = bool(cfg.use_ema), bool(cfg.eman)
         momentum = float(cfg.ema_momentum)
         m_micro = int(cfg.micro_batches or 1)
 
         def forward_losses(state: MatchState, images, tabs, y_l,
-                           epoch: int, lerp_ema: bool):
+                           gate: Tensor, lerp_ema: bool):
             """Student forward, teacher forward (after the EMAN lerp when
             ``lerp_ema``) and the losses."""
             b_l = y_l.shape[0]
@@ -105,7 +108,6 @@ class CoTrain(MMatch):
                         * mask_t).mean()
             loss_t_u = (soft_cross_entropy(ot[b_l:], pseudo_i, "none")
                         * mask_i).mean()
-            gate = float(epoch > start_epoch)
             total = alpha * loss_ce + gate * rate_uce * (loss_i_u + loss_t_u)
             logs = {"loss": total, "CEloss": loss_ce,
                     "CEloss_unlabelled_i": loss_i_u,
@@ -116,11 +118,12 @@ class CoTrain(MMatch):
 
         def step(state: MatchState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             y_l, y_u, images, tabs = self.chunk_views(state, cache_l,
                                                       cache_u, idx_l, idx_u)
             state.net.train()
             om, total, logs = forward_losses(state, images, tabs, y_l,
-                                             int(epoch), lerp_ema=True)
+                                             gate, lerp_ema=True)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
@@ -132,6 +135,7 @@ class CoTrain(MMatch):
         def step_micro(state: MatchState, cache_l: dict, cache_u: dict,
                        idx_l: Tensor, idx_u: Tensor,
                        epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             state.net.train()
             if use_ema:
                 # once, on the pre-step parameters and running statistics
@@ -142,7 +146,7 @@ class CoTrain(MMatch):
                 y_l, y_u, images, tabs = self.chunk_views(
                     state, cache_l, cache_u, il, iu)
                 om, total, logs = forward_losses(state, images, tabs, y_l,
-                                                 int(epoch), lerp_ema=False)
+                                                 gate, lerp_ema=False)
                 self.update_accuracy(state, om, y_l, y_u)
                 for k in self.LOG_KEYS:
                     lacc[k] = lacc[k] + logs[k].detach()

@@ -81,7 +81,6 @@ class FreeMatch(MatchBase):
         c = self.num_classes
         lambda_u = float(cfg.lambda_u)
         lambda_e = float(cfg.lambda_e or 0.01)
-        start_epoch = int(cfg.start_epoch)
         momentum = float(cfg.ema_momentum)
         m = SELF_ADAPT_M
         m_micro = int(cfg.micro_batches or 1)
@@ -107,7 +106,7 @@ class FreeMatch(MatchBase):
                     ex["label_hist"] * m + (1 - m) * hist / hist.sum())
 
         def losses(logits, b_l, y_l, max_probs, max_idx, time_p, p_model,
-                   label_hist, epoch: int):
+                   label_hist, gate: Tensor):
             mod = p_model / p_model.max()
             mask = (max_probs >= time_p * mod[max_idx]).float()
             pseudo = F.one_hot(max_idx, c).to(logits.dtype)
@@ -117,14 +116,22 @@ class FreeMatch(MatchBase):
             # plain CrossEntropyLoss (``FreeMatch.py:35, 93``)
             loss_u = soft_cross_entropy(logits_us, pseudo)
             loss_e = entropy_loss(mask, logits_us, p_model, label_hist)
-            gate = float(epoch > start_epoch)
             total = loss_x + gate * (lambda_u * loss_u + lambda_e * loss_e)
             return total, {"loss": total, "loss_x": loss_x,
                            "loss_u": loss_u, "loss_e": loss_e,
                            "threshold1_ratio": mask.mean()}
 
+        @torch.no_grad()
+        def commit(state: MatchState, time_p, p_model, label_hist) -> None:
+            """The lerped buffers into the state's, in place."""
+            ex = state.extra
+            for k, v in (("time_p", time_p), ("p_model", p_model),
+                         ("label_hist", label_hist)):
+                ex[k].copy_(v)
+
         def step(state: MatchState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             y_l, y_u, (img_x, tab_x), (img_w, tab_w), (img_s, tab_s), _ = \
                 self.batch_views(state, cache_l, cache_u, idx_l, idx_u)
             state.net.train()
@@ -137,13 +144,11 @@ class FreeMatch(MatchBase):
             time_p, p_model, label_hist = lerped(
                 state, max_probs.mean(), mean_probs, hist)
             total, logs = losses(logits, y_l.shape[0], y_l, max_probs,
-                                 max_idx, time_p, p_model, label_hist,
-                                 int(epoch))
+                                 max_idx, time_p, p_model, label_hist, gate)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
-            state.extra = {"p_model": p_model, "label_hist": label_hist,
-                           "time_p": time_p}
+            commit(state, time_p, p_model, label_hist)
             self.update_accuracy(state, logits, y_l, y_u)
             self.add_logs(state, logs)
             state.step += 1
@@ -152,6 +157,7 @@ class FreeMatch(MatchBase):
         def step_micro(state: MatchState, cache_l: dict, cache_u: dict,
                        idx_l: Tensor, idx_u: Tensor,
                        epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             state.net.train()
             # once, on the pre-step parameters and running statistics
             ema_update(state.ema, ema_source(state.net), momentum, True)
@@ -170,7 +176,7 @@ class FreeMatch(MatchBase):
                 total, logs = losses(logits, y_l.shape[0], y_l, max_probs,
                                      max_idx, *lerped(state, mean_maxp,
                                                       mean_probs, hist),
-                                     int(epoch))
+                                     gate)
                 for i, v in enumerate((mean_maxp, mean_probs, hist)):
                     sums[i] = sums[i] + v
                 self.update_accuracy(state, logits, y_l, y_u)
@@ -183,8 +189,7 @@ class FreeMatch(MatchBase):
             with torch.no_grad():
                 time_p, p_model, label_hist = lerped(
                     state, sums[0] / m_micro, sums[1] / m_micro, sums[2])
-                state.extra = {"p_model": p_model,
-                               "label_hist": label_hist, "time_p": time_p}
+                commit(state, time_p, p_model, label_hist)
                 self.add_logs(state, {k: v / m_micro
                                       for k, v in lacc.items()})
             state.step += 1

@@ -17,6 +17,10 @@ With ``finetune_strategy: frozen`` and a ``checkpoint`` the encoders'
 updates are zero (``train/optim.py:frozen_parameters``), as for STiL.
 
 The train state is mutable: a step updates it in place and returns it.
+No state tensor is rebound (write positions and lengths are 0-dim int64
+tensors, the epoch's gates device scalars that :meth:`MatchBase.
+set_epoch` fills), so each family's step can be captured in a CUDA graph
+and replayed (``train/multistep.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from stil_tta_torch.algorithms.base import DAState, init_weights
+from stil_tta_torch.algorithms.base import (DAState, EpochScalars,
+                                            init_weights)
 from stil_tta_torch.data.augment import (default_pipeline,
                                          hard_eval_pipeline,
                                          strong_pipeline, weak_pipeline)
@@ -39,7 +44,7 @@ from stil_tta_torch.models.layers import Linear, acc_dtype
 from stil_tta_torch.models.resnet import EMBEDDING_DIM, image_encoder
 from stil_tta_torch.ops.metrics import (AccuracyState, accuracy_compute,
                                         accuracy_init, accuracy_update)
-from stil_tta_torch.train import optim
+from stil_tta_torch.train import multistep, optim
 
 Tensor = torch.Tensor
 
@@ -124,7 +129,8 @@ class MatchState:
     generator of the step's random views, the DA ring (None without
     ``DA``), the family's buffers (``extra``: MMatch's memory bank), the
     streaming train accuracies, this epoch's loss sums and the step
-    count."""
+    count. Write positions and lengths in ``extra`` are 0-dim int64
+    tensors (checkpoints hold them as ints)."""
 
     net: nn.Module
     ema: Optional[nn.Module]
@@ -139,18 +145,36 @@ class MatchState:
     step: int = 0
 
 
-def enqueue(queue: Tensor, probs: Tensor, ptr: int, z: Tensor,
-            t: Tensor) -> int:
+def enqueue(queue: Tensor, probs: Tensor, ptr, z: Tensor, t: Tensor):
     """CoMatch's circular enqueue (``comatch.py:59-77``), in place: the
     rows of ``z`` (B, D) and ``t`` (B, C) go into the columns ``ptr,
     ptr+1, ...`` of ``queue`` (D, K) and ``probs`` (C, K); rows past
-    column K - 1 are dropped, not wrapped. Returns the new write position
-    ``(ptr + min(B, K - ptr)) % K``."""
-    k = queue.shape[1]
-    n = min(z.shape[0], k - ptr)
-    queue[:, ptr:ptr + n] = z[:n].T.to(queue.dtype)
-    probs[:, ptr:ptr + n] = t[:n].T.to(probs.dtype)
-    return (ptr + n) % k
+    column K - 1 are dropped, not wrapped. The new write position is
+    ``(ptr + min(B, K - ptr)) % K``.
+
+    ``ptr`` is a 0-dim int64 tensor on the queue's device (an int is
+    made one), advanced in place and returned: every shape is fixed and
+    nothing is read on the host, so a captured step replays it. Each row
+    goes to column ``ptr + i``, a row past K - 1 to a column of a scratch
+    extension of the queue that is then dropped."""
+    if not isinstance(ptr, Tensor):
+        ptr = position(ptr, queue.device)
+    k, b = queue.shape[1], z.shape[0]
+    rows = torch.arange(b, device=ptr.device)
+    cols = ptr + rows
+    cols = torch.where(cols < k, cols, k + rows)
+    for buf, new in ((queue, z), (probs, t)):
+        ext = torch.cat([buf, buf.new_zeros((buf.shape[0], b))], dim=1)
+        ext.index_copy_(1, cols, new.T.to(buf.dtype))
+        buf.copy_(ext[:, :k])
+    ptr.add_((k - ptr).clamp(max=b)).remainder_(k)
+    return ptr
+
+
+def position(value: int, device) -> Tensor:
+    """A write position or a length of a family's buffers: a 0-dim int64
+    tensor on ``device``, advanced in place by the step."""
+    return torch.tensor(int(value), dtype=torch.long, device=device)
 
 
 class MatchBase:
@@ -163,6 +187,10 @@ class MatchBase:
     ``imaging_and_tabular`` or ``multimodal``, scored on its logits. The
     net's parameters are float32 (float64 when ``dtype`` is float64, for
     parity tests) and it computes in ``dtype``.
+
+    The step reads the epoch through device scalars (:meth:`set_epoch`,
+    the names and values of :meth:`epoch_values`), so that one captured
+    step serves every epoch (``train/multistep.py``).
 
     ``entropy_tta`` is False: TTA by entropy (Tent, EATA, SAR) reads the
     multimodal head by name, which these nets' tuple outputs do not
@@ -185,6 +213,8 @@ class MatchBase:
                                   dtype)
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
+        self.epoch_scalars = EpochScalars(self.epoch_values(0),
+                                          acc_dtype(dtype), self.device)
 
     # -- subclass hooks -------------------------------------------------
     def build_net(self, cfg, field_lengths, dtype) -> nn.Module:
@@ -206,13 +236,32 @@ class MatchBase:
     def extra_state(self) -> Dict[str, object]:
         return {}
 
+    def epoch_values(self, epoch: int) -> Dict[str, float]:
+        """The epoch's scalars the step reads: ``gate``, 1.0 past
+        ``start_epoch`` (the unlabelled losses count), else 0.0."""
+        return {"gate": float(int(epoch) > int(self.cfg.start_epoch))}
+
+    @classmethod
+    def graph_unsafe(cls, cfg) -> Optional[str]:
+        """None: every family's step, single-batch or micro-batched, can
+        be captured (``train/multistep.py:choose_route``); the families
+        ignore ``teacher_int8``."""
+        return None
+
+    def set_epoch(self, epoch: int) -> Dict[str, Tensor]:
+        """Fill the device scalars of :meth:`epoch_values` for ``epoch``
+        and return them by name. The step calls it; a captured step's
+        dispatcher calls it before its replays, never inside a capture."""
+        return self.epoch_scalars.fill(self.epoch_values(epoch))
+
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> MatchState:
         """Seeded random weights (:func:`init_weights`), the EMA teacher
         as a copy of the student's (:func:`ema_source`) where the family
         keeps one, a fresh float32 Adam, the family's buffers and zeroed
         sums. The generator that drew the weights goes on to draw the
-        steps' views."""
+        steps' views. The optimizer is capturable when the config's steps
+        take the graph route."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -225,7 +274,9 @@ class MatchBase:
         optimizer = optim.build_optimizer(
             self.net.parameters(), float(cfg.lr_eval),
             float(cfg.weight_decay_eval or 0.0),
-            frozen=optim.frozen_parameters(cfg, self.net))
+            frozen=optim.frozen_parameters(cfg, self.net),
+            capturable=multistep.choose_route(
+                type(self), cfg, self.device)[0] == "graph")
         adt = acc_dtype(self.dtype)
         state = MatchState(
             net=self.net, ema=ema, optimizer=optimizer, generator=gen,
@@ -316,6 +367,15 @@ class MatchBase:
         return step
 
     def _reset_epoch(self, state: MatchState) -> None:
+        """Zero the metric states and loss sums: created on the first
+        call, zeroed in place afterwards (a captured step holds their
+        addresses)."""
+        if state.log_count is not None:
+            for t in (state.acc_train.correct, state.acc_train.total,
+                      state.acc_train_u.correct, state.acc_train_u.total,
+                      state.log_count, *state.log_sums.values()):
+                t.zero_()
+            return
         adt, dev = acc_dtype(self.dtype), self.device
         state.acc_train = accuracy_init(dev)
         state.acc_train_u = accuracy_init(dev)
@@ -346,12 +406,12 @@ class MatchBase:
         prob_l, prob_u = prob[:b_l], prob[b_l:]
         if self.num_classes == 2:
             prob_l, prob_u = prob_l[:, 1], prob_u[:, 1]
-        state.acc_train = accuracy_update(state.acc_train, prob_l, y_l)
-        state.acc_train_u = accuracy_update(state.acc_train_u, prob_u, y_u)
+        accuracy_update(state.acc_train, prob_l, y_l)
+        accuracy_update(state.acc_train_u, prob_u, y_u)
 
     @torch.no_grad()
     def add_logs(self, state: MatchState, logs: Dict[str, Tensor]) -> None:
         """One step's logs into the epoch's sums, in place."""
-        state.log_sums = {k: state.log_sums[k] + logs[k].detach()
-                          for k in self.LOG_KEYS}
-        state.log_count = state.log_count + 1.0
+        for k in self.LOG_KEYS:
+            state.log_sums[k].add_(logs[k].detach())
+        state.log_count.add_(1.0)

@@ -12,7 +12,8 @@ imaging and tabular heads; the loss ``alpha * CE_l + mmatch_lambda *
 (L_i + L_t)`` past ``start_epoch``. The bank (``embed_queue`` (P, 640),
 ``probs_queue`` (C, 640), ``ptr``) takes the batch's normalised
 embeddings and its targets (the labelled one-hots, then the pseudo
-labels) after the update, truncating at its end.
+labels) after the update, truncating at its end; its position is a
+0-dim int64 tensor on the device.
 
 Co-Training (``algorithms/cotrain.py``) subclasses :class:`MMatch` for
 its net, views, eval step and plumbing, as in the JAX package.
@@ -30,7 +31,7 @@ from stil_tta_torch.algorithms.base import (DAState, accumulate_chunks,
                                             distribution_alignment,
                                             draw_views)
 from stil_tta_torch.algorithms.match_common import (MatchBase, MatchState,
-                                                    enqueue)
+                                                    enqueue, position)
 from stil_tta_torch.data.augment import contrastive_pipeline
 from stil_tta_torch.data.loader import gather_batch, marginal_table
 from stil_tta_torch.losses.clip_loss import l2norm
@@ -100,6 +101,12 @@ class MMatch(MatchBase):
                               else float(cfg.saint_ff_dropout)),
             dtype=dtype, img_size=int(cfg.img_size))
 
+    def epoch_values(self, epoch: int) -> Dict[str, float]:
+        """MatchBase's ``gate`` and ``smooth``, 1.0 past epoch 0 (the
+        pseudo labels are smoothed through the bank)."""
+        return {**super().epoch_values(epoch),
+                "smooth": float(int(epoch) > 0)}
+
     def extra_state(self) -> Dict[str, object]:
         """The memory bank (``mmatch.py:87-95``): unit-column normal
         embeddings, zero targets, write position 0. The JAX package draws
@@ -112,7 +119,7 @@ class MMatch(MatchBase):
         return {"embed_queue": q / q.norm(dim=0, keepdim=True),
                 "probs_queue": torch.zeros((c, MMATCH_K), dtype=adt,
                                            device=dev),
-                "ptr": 0}
+                "ptr": position(0, dev)}
 
     # ------------------------------------------------------------------
     def _prepare_training(self) -> None:
@@ -165,11 +172,10 @@ class MMatch(MatchBase):
         alpha = float(cfg.alpha)
         lam = float(cfg.mmatch_lambda or 1.0)
         th1, temp = float(cfg.th1), float(cfg.temperature)
-        start_epoch = int(cfg.start_epoch)
         m_micro = int(cfg.micro_batches or 1)
 
         def forward_losses(state: MatchState, da: DAState, images, tabs,
-                           y_l, epoch: int):
+                           y_l, gates: Dict[str, Tensor]):
             """Student forward, targets (aligned against ``da``, smoothed
             through the state's bank after epoch 0) and losses."""
             b_l = y_l.shape[0]
@@ -179,11 +185,11 @@ class MMatch(MatchBase):
             feat_m = l2norm(xm.detach())
             da, pseudo = distribution_alignment(
                 da, torch.softmax(om[b_l:].detach(), dim=1))
-            if epoch > 0:
-                ex = state.extra
-                a = torch.exp((feat_m[b_l:] @ ex["embed_queue"]) / temp)
-                a = a / a.sum(1, keepdim=True).clamp_min(1e-12)
-                pseudo = 0.9 * pseudo + 0.1 * (a @ ex["probs_queue"].T)
+            ex = state.extra
+            a = torch.exp((feat_m[b_l:] @ ex["embed_queue"]) / temp)
+            a = a / a.sum(1, keepdim=True).clamp_min(1e-12)
+            pseudo = torch.where(gates["smooth"].bool(), 0.9 * pseudo
+                                 + 0.1 * (a @ ex["probs_queue"].T), pseudo)
             mask1 = (pseudo.amax(1) >= th1).float()
             hard = F.one_hot(pseudo.argmax(1), c).float()
             loss_ce = (cross_entropy(om[:b_l], y_l)
@@ -193,8 +199,8 @@ class MMatch(MatchBase):
                         * mask1).mean()
             loss_t_u = (soft_cross_entropy(ot[b_l:], hard, "none")
                         * mask1).mean()
-            gate = float(epoch > start_epoch)
-            total = alpha * loss_ce + gate * lam * (loss_i_u + loss_t_u)
+            total = alpha * loss_ce + gates["gate"] * lam * (loss_i_u
+                                                             + loss_t_u)
             logs = {"loss": total, "CEloss": loss_ce,
                     "CEloss_unlabelled_i": loss_i_u,
                     "CEloss_unlabelled_t": loss_t_u,
@@ -207,22 +213,21 @@ class MMatch(MatchBase):
             ex = state.extra
             targets = torch.cat([F.one_hot(y_l.long(), c).to(pseudo_u.dtype),
                                  pseudo_u], 0)
-            ex["ptr"] = enqueue(ex["embed_queue"], ex["probs_queue"],
-                                ex["ptr"], feat_m, targets)
+            enqueue(ex["embed_queue"], ex["probs_queue"], ex["ptr"], feat_m,
+                    targets)
 
         def step(state: MatchState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int) -> MatchState:
-            epoch = int(epoch)
+            gates = self.set_epoch(epoch)
             y_l, y_u, images, tabs = self.chunk_views(state, cache_l,
                                                       cache_u, idx_l, idx_u)
             state.net.train()
             om, feat_m, pseudo, da, total, logs = forward_losses(
-                state, state.da, images, tabs, y_l, epoch)
+                state, state.da, images, tabs, y_l, gates)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
             commit_bank(state, feat_m, y_l, pseudo)
-            state.da = da
             self.update_accuracy(state, om, y_l, y_u)
             self.add_logs(state, logs)
             state.step += 1
@@ -231,7 +236,7 @@ class MMatch(MatchBase):
         def step_micro(state: MatchState, cache_l: dict, cache_u: dict,
                        idx_l: Tensor, idx_u: Tensor,
                        epoch: int) -> MatchState:
-            epoch = int(epoch)
+            gates = self.set_epoch(epoch)
             state.net.train()
             da0 = state.da
             lacc = {k: 0.0 for k in self.LOG_KEYS}
@@ -241,7 +246,7 @@ class MMatch(MatchBase):
                 y_l, y_u, images, tabs = self.chunk_views(
                     state, cache_l, cache_u, il, iu)
                 om, feat_m, pseudo, da_c, total, logs = forward_losses(
-                    state, da0.clone(), images, tabs, y_l, epoch)
+                    state, da0.clone(), images, tabs, y_l, gates)
                 # the chunk's mean sits in the slot its alignment wrote
                 means.append(da_c.row(da0.ptr))
                 b_l = y_l.shape[0]

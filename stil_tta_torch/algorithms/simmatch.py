@@ -100,13 +100,12 @@ class SimMatch(MatchBase):
         lambda_u, lambda_in = float(cfg.lambda_u), float(cfg.lambda_in)
         tt, st = float(cfg.tt), float(cfg.st)
         c_smooth = float(cfg.c_smooth)
-        start_epoch = int(cfg.start_epoch)
         momentum = float(cfg.ema_momentum)
         use_da = bool(cfg.DA)
         m_micro = int(cfg.micro_batches or 1)
 
         def targets_losses(state: MatchState, da: DAState, logits, feat,
-                           x, w, y_l, epoch: int):
+                           x, w, y_l, gate: Tensor):
             """From the student's outputs on (labelled, strong): the
             teacher on (labelled, weak) as it stands, the targets
             (aligned against ``da``) and the losses; returns (the
@@ -139,7 +138,6 @@ class SimMatch(MatchBase):
             student_prob = torch.softmax(feat[b_l:] @ bank / st, dim=1)
             loss_in = (-teacher_prob * torch.log(student_prob + 1e-12)).sum(
                 1).mean()
-            gate = float(epoch > start_epoch)
             total = loss_x + gate * (lambda_u * loss_u + lambda_in * loss_in)
             logs = {"loss": total, "loss_x": loss_x, "loss_u": loss_u,
                     "loss_in": loss_in, "threshold1_ratio": mask.mean()}
@@ -155,6 +153,7 @@ class SimMatch(MatchBase):
 
         def step(state: MatchState, cache_l: dict, cache_u: dict,
                  idx_l: Tensor, idx_u: Tensor, epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             y_l, y_u, x, w, s, _ = self.batch_views(state, cache_l, cache_u,
                                                     idx_l, idx_u)
             state.net.train()
@@ -163,12 +162,11 @@ class SimMatch(MatchBase):
                                    torch.cat([x[1], s[1]]))
             ema_update(state.ema, ema_source(state.net), momentum, True)
             feat_kx, da, total, logs = targets_losses(
-                state, state.da, logits, feat, x, w, y_l, int(epoch))
+                state, state.da, logits, feat, x, w, y_l, gate)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             optim.step(state.optimizer)
             scatter_bank(state, cache_l, idx_l, feat_kx, y_l)
-            state.da = da
             self.update_accuracy(state, logits, y_l, y_u)
             self.add_logs(state, logs)
             state.step += 1
@@ -177,6 +175,7 @@ class SimMatch(MatchBase):
         def step_micro(state: MatchState, cache_l: dict, cache_u: dict,
                        idx_l: Tensor, idx_u: Tensor,
                        epoch: int) -> MatchState:
+            gate = self.set_epoch(epoch)["gate"]
             state.net.train()
             # once, on the pre-step parameters and running statistics
             ema_update(state.ema, ema_source(state.net), momentum, True)
@@ -191,7 +190,7 @@ class SimMatch(MatchBase):
                     state.net, (y_l.shape[0], y_u.shape[0]),
                     torch.cat([x[0], s[0]]), torch.cat([x[1], s[1]]))
                 feat_kx, da_c, total, logs = targets_losses(
-                    state, da0.clone(), logits, feat, x, w, y_l, int(epoch))
+                    state, da0.clone(), logits, feat, x, w, y_l, gate)
                 if use_da:
                     # the chunk's mean sits in the slot its alignment wrote
                     means.append(da_c.row(da0.ptr))

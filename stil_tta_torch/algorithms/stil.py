@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stil_tta_torch.algorithms.base import (DAState, accumulate_chunks,
+from stil_tta_torch.algorithms.base import (DAState, EpochScalars,
+                                            accumulate_chunks,
                                             distribution_alignment,
                                             draw_views, ema_update,
                                             init_weights, sharpen)
@@ -215,33 +216,23 @@ class STiL:
             img_size=int(cfg.img_size))
         self.net.to(device=self.device, dtype=acc_dtype(dtype)).eval()
         self.aug_eval = default_pipeline(int(cfg.img_size), cfg.target)
-        # 1.0 past start_epoch, else 0.0: a device scalar, so that a
-        # captured step reads the epoch's value (set_epoch) at each replay
-        self.use_pseudo = torch.zeros((), dtype=acc_dtype(dtype),
-                                      device=self.device)
-        self._use_pseudo_value: Optional[float] = None
+        # use_pseudo: 1.0 past start_epoch, else 0.0
+        self.epoch_scalars = EpochScalars(("use_pseudo",), acc_dtype(dtype),
+                                          self.device)
 
     def set_epoch(self, epoch: int) -> Tensor:
-        """Fill :attr:`use_pseudo` for ``epoch`` (only when its value
-        changes) and return it. The step calls it; a captured step's
-        dispatcher calls it before its replays, never inside a capture."""
+        """Fill the pseudo-label gate for ``epoch`` and return it. The
+        step calls it; a captured step's dispatcher calls it before its
+        replays, never inside a capture."""
         value = float(int(epoch) > int(self.cfg.start_epoch))
-        if value != self._use_pseudo_value:
-            if torch.cuda.is_available() and \
-                    torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("set_epoch: the pseudo-label gate changes "
-                                   "inside a CUDA graph capture")
-            self.use_pseudo.fill_(value)
-            self._use_pseudo_value = value
-        return self.use_pseudo
+        return self.epoch_scalars.fill({"use_pseudo": value})["use_pseudo"]
 
     @classmethod
     def graph_unsafe(cls, cfg) -> Optional[str]:
         """None when the train step under ``cfg`` can be captured in a
-        CUDA graph (``train/multistep.py``), else why not: the
-        micro-batched step and the int8 teacher's are not captured."""
-        if int(cfg.micro_batches or 1) > 1:
-            return "micro_batches > 1"
+        CUDA graph (``train/multistep.py``), else why not: the int8
+        teacher's is not captured (the single-batch and the micro-batched
+        steps are)."""
         if bool(cfg.teacher_int8):
             return "teacher_int8"
         return None
@@ -522,7 +513,7 @@ class STiL:
                  mask_rand: Optional[Tensor] = None) -> STiLState:
             """Graph-safe: no host sync, no shape that depends on the
             data, every state tensor updated in place; the epoch enters
-            as the device gate :attr:`use_pseudo`. Only ``state.step``
+            as the device gate of :meth:`set_epoch`. Only ``state.step``
             moves on the host."""
             y_l, y_u, images, tabs, missing = chunk_views(
                 state, cache_l, cache_u, idx_l, idx_u)

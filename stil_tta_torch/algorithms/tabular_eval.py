@@ -63,6 +63,10 @@ class TabularEval(MatchBase):
     name = "TabularEval"
     LOG_KEYS = ("loss",)
 
+    def epoch_values(self, epoch: int) -> Dict[str, float]:
+        """None: the step does not read the epoch."""
+        return {}
+
     def build_net(self, cfg, field_lengths, dtype) -> nn.Module:
         return TabularNet(
             field_lengths, self.num_classes,
@@ -114,8 +118,8 @@ class TabularEval(MatchBase):
             optim.step(state.optimizer)
             with torch.no_grad():
                 prob = torch.softmax(logits.detach(), dim=1)
-                state.acc_train = accuracy_update(
-                    state.acc_train, prob[:, 1] if binary else prob, y)
+                accuracy_update(state.acc_train,
+                                prob[:, 1] if binary else prob, y)
             self.add_logs(state, {"loss": loss})
             state.step += 1
             return state

@@ -11,7 +11,9 @@ count, and the states of the step's generator and of the device's
 default generator (the one the dropout layers draw from), so
 :func:`restore_checkpoint` resumes a run exactly.
 The config goes beside it as ``<name>_config.json``, as in the JAX
-package. The format is the port's own: an Orbax checkpoint of the JAX
+package. Write positions and lengths (the state's 0-dim int64 tensors)
+are saved as ints and restored as tensors on the state's device. The
+format is the port's own: an Orbax checkpoint of the JAX
 package does not load here, nor the reverse.
 """
 
@@ -34,6 +36,13 @@ _BUFFERS = ("prototypes", "prototypes_sum", "prototypes_count", "log_count",
             "extra")
 _METRICS = {"acc_train": AccuracyState, "acc_train_u": AccuracyState,
             "auc_train": AUROCState, "auc_train_u": AUROCState}
+
+
+def _is_position(v) -> bool:
+    """A write position or a length of a family's ``extra``: a 0-dim
+    int64 tensor."""
+    return isinstance(v, torch.Tensor) and v.dim() == 0 \
+        and v.dtype == torch.long
 
 
 def _default_rng_state(device: torch.device) -> torch.Tensor:
@@ -67,6 +76,9 @@ def state_tree(state) -> dict:
     }
     payload.update({k: getattr(state, k) for k in _BUFFERS
                     if hasattr(state, k)})
+    if "extra" in payload:
+        payload["extra"] = {k: int(v) if _is_position(v) else v
+                            for k, v in payload["extra"].items()}
     payload.update({k: None if getattr(state, k, None) is None
                     else dataclasses.asdict(getattr(state, k))
                     for k in _METRICS})
@@ -112,6 +124,10 @@ def restore_checkpoint(directory: os.PathLike, state, name: str = "best"):
     for k in _BUFFERS:
         if hasattr(state, k):
             setattr(state, k, payload[k])
+    if hasattr(state, "extra"):
+        state.extra = {k: torch.tensor(v, dtype=torch.long, device=device)
+                       if isinstance(v, int) else v
+                       for k, v in state.extra.items()}
     for k, cls in _METRICS.items():
         if hasattr(state, k):
             setattr(state, k,

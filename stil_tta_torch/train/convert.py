@@ -390,8 +390,11 @@ def load_train_state(state, carried: Dict[str, object]) -> None:
         if set(carried["extra"]) != set(state.extra):
             raise KeyError(f"extra buffers {sorted(carried['extra'])} do "
                            f"not match the state's {sorted(state.extra)}")
-        state.extra = {k: (v if isinstance(v, int)
-                           else like(v, state.extra[k]))
+        # a position carried as an int becomes the state's 0-dim int64
+        # tensor on its device, which the steps advance in place
+        state.extra = {k: (torch.tensor(v, dtype=torch.long,
+                                        device=state.extra[k].device)
+                           if isinstance(v, int) else like(v, state.extra[k]))
                        for k, v in carried["extra"].items()}
     else:
         for k in ("prototypes", "prototypes_sum", "prototypes_count"):

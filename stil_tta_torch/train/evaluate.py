@@ -27,11 +27,11 @@ corruption marginals, and validation and test stay in a
 steps K at a time (``train/multistep.py``): full groups of K (index
 blocks from :func:`~stil_tta_torch.train.multistep.chunk_indices`, or
 :meth:`HostStream.epoch_blocks`' stacked blocks) go to one dispatch, the
-tail runs as single steps, as in the JAX package. On the card STiL's
-family replays a captured step (the route is chosen from the config
-before anything is captured and printed once); the other families, and
-every family on the CPU, run each block's steps one by one. The result is
-that of single steps.
+tail runs as single steps, as in the JAX package. On the card every
+family of the registry replays a captured step (the route is chosen from
+the config before anything is captured and printed once); STiL's
+``teacher_int8``, a data-parallel mesh and every family on the CPU run
+each block's steps one by one. The result is that of single steps.
 
 AUROC is computed here with numpy and ``scipy.stats.rankdata`` (the card
 machine has no scikit-learn), keeping ``sklearn.metrics.roc_auc_score``'s
@@ -318,6 +318,7 @@ def evaluate(cfg, logdir: Optional[Path] = None,
     for epoch in range(state.step // max(steps_per_epoch, 1), max_epochs):
         lr = optim.scheduled_lr(cfg, epoch, val_metric_value, plateau)
         optim.set_learning_rate(state.optimizer, lr)
+        algo.set_epoch(epoch)   # the epoch's gates, outside any capture
         t0 = time.time()
         l_sampler, u_sampler = make_samplers(epoch)
         if host_stream:

@@ -10,14 +10,16 @@ dispatch. One step is captured rather than K unrolled: the graph's memory
 pool then holds one step's tensors, and one graph serves blocks and epochs
 of any length. Each replay's inputs reach the graph's static buffers by a
 device-to-device copy from the block, which comes to the card once a
-dispatch. Everywhere else (the CPU, the families whose step is not
-captured here, ``micro_batches > 1``, ``teacher_int8``, a data-parallel
-mesh) :class:`EagerSteps` runs a dispatch's K steps one by one.
+dispatch. Every family of the registry is captured, single-batch or
+micro-batched (``micro_batches > 1``: the chunk loop is a fixed Python
+loop, so one capture holds all m chunks). Everywhere else (the CPU,
+STiL's ``teacher_int8``, a data-parallel mesh) :class:`EagerSteps` runs
+a dispatch's K steps one by one.
 :func:`choose_route` picks the route from the config before anything is
 captured. Either way a dispatch leaves the state of K single steps: the
 captured step is the eager step, and its replays read the learning rate,
-the pseudo-label gate, the generators and every buffer where the eager
-step keeps them. A run on the graph route builds its optimizer
+the epoch's gates (``set_epoch``), the generators and every buffer and
+write position where the eager step keeps them. A run on the graph route builds its optimizer
 ``capturable`` from the start (``train/optim.py``), so its eager steps
 (the warm-up, the tail) do the replays' arithmetic; every other run keeps
 the optimizer it always had.
@@ -84,7 +86,9 @@ def choose_route(algo_cls, cfg, device) -> Tuple[str, str]:
         return "eager", why
     if collectives.active_mesh() is not None:
         return "eager", "a data-parallel mesh (its collectives are host calls)"
-    return "graph", f"{name}'s single-batch step, one CUDA graph replayed"
+    kind = "micro-batched" if int(cfg.micro_batches or 1) > 1 \
+        else "single-batch"
+    return "graph", f"{name}'s {kind} step, one CUDA graph replayed"
 
 
 class EagerSteps:
@@ -132,6 +136,27 @@ def state_tensors(state) -> Dict[str, Tensor]:
     return out
 
 
+def _host_values(state) -> Dict[str, object]:
+    """The numbers a train state holds on the host by name (ints and
+    floats in its fields and dicts; ``step`` aside, which the dispatcher
+    advances)."""
+    out: Dict[str, object] = {}
+
+    def visit(name: str, obj) -> None:
+        if isinstance(obj, (bool, int, float)):
+            out[name] = obj
+        elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                if f.name != "step":
+                    visit(f"{name}.{f.name}", getattr(obj, f.name))
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                visit(f"{name}.{k}", v)
+
+    visit("state", state)
+    return out
+
+
 def _addresses(state) -> Dict[str, int]:
     return {k: t.data_ptr() for k, t in state_tensors(state).items()}
 
@@ -139,7 +164,7 @@ def _addresses(state) -> Dict[str, int]:
 class GraphedStep:
     """A dispatch of K steps as K replays of one captured ``step`` of
     ``algo`` (an algorithm with ``set_epoch``, whose step is graph-safe:
-    ``algorithms/stil.py``).
+    ``algorithms/stil.py``, ``algorithms/match_common.py``).
 
     The first call runs its first row eagerly (the warm-up), captures the
     step on a side stream and replays the rest. ``rows`` are the K steps'
@@ -147,8 +172,8 @@ class GraphedStep:
     in every row (a device cache, a corruption marginal, an ``arange``) is
     read where it lies, and the graph keeps a static buffer for each of
     the others, filled by a device-to-device copy before each replay.
-    Before each dispatch :meth:`~stil_tta_torch.algorithms.stil.STiL.
-    set_epoch` writes the epoch's pseudo-label gate; ``state.step``
+    Before each dispatch the algorithm's ``set_epoch`` writes the epoch's
+    gates (STiL's pseudo-label gate, a family's loss gate); ``state.step``
     advances by one a replay, and so do the counters of :data:`COUNTERS`
     by what the captured step added (``per_replay``). The state's
     generator is registered with the graph, so each replay draws the
@@ -158,7 +183,9 @@ class GraphedStep:
     Raises ``RuntimeError`` when the optimizer is not capturable or holds
     a number for a learning rate that the schedule moves (a capture would
     bake it in), when the capture fails, when the captured step rebinds a
-    state tensor (the graph would then read a stale one) and when a later
+    state tensor (the graph would then read a stale one) or changes a
+    number the state holds on the host (a replay would not), and when a
+    later
     dispatch's state, fixed inputs or input shapes differ from the
     captured ones. ``capture_s`` and ``pool_bytes`` (device
     memory the capture reserved) are set by the capture."""
@@ -229,6 +256,7 @@ class GraphedStep:
         counts = {c: getattr(*c) for c in COUNTERS}
         step0 = state.step
         before = _addresses(state)
+        host_before = _host_values(state)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
@@ -255,6 +283,13 @@ class GraphedStep:
                 "GraphedStep: the captured step rebinds state tensors "
                 f"{(moved or sorted(set(after) ^ set(before)))[:5]}; a "
                 "replay would read stale ones")
+        host_after = _host_values(state)
+        changed = [k for k in host_before
+                   if host_after.get(k) != host_before[k]]
+        if changed:
+            raise RuntimeError(
+                f"GraphedStep: the captured step changes host values "
+                f"{changed[:5]}; a replay would not")
         self.addresses = after
         self.graph = graph
 

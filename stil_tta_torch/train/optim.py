@@ -15,7 +15,8 @@ epoch, copied from the JAX package.
 A run whose train step is captured (``train/multistep.py``) builds its
 optimizer ``capturable``: the learning rate is a device tensor that
 :func:`set_learning_rate` fills, the step counts live on the card
-(``torch.optim.Adam(capturable=True)``; :class:`Adam` counts on the
+(:class:`CapturableAdam`, torch's capturable Adam with its bias
+corrections computed once a step; :class:`Adam` counts on the
 parameters' device) and the moments are updated in place. The same
 optimizer then runs that run's eager steps too, so an eager step and a
 replay do the same arithmetic. Every other optimizer (the CPU's, the
@@ -128,6 +129,69 @@ class Adam(torch.optim.Optimizer):
         return None
 
 
+class CapturableAdam(torch.optim.Adam):
+    """``torch.optim.Adam(capturable=True)`` (L2 weight decay, no
+    amsgrad, no maximize), its multi-tensor update operation for
+    operation (``torch.optim.adam._multi_tensor_adam``), with the bias
+    corrections computed once a param group and step where torch
+    computes them once a parameter: every parameter of a group has taken
+    the same steps, so torch's per-parameter corrections are one value,
+    and a step launches two ``pow`` kernels where torch's launch two a
+    parameter. The update is bit for bit torch's on the same inputs; the
+    state (``step`` on the parameters' device, ``exp_avg``,
+    ``exp_avg_sq``) and ``state_dict`` are torch's."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CapturableAdam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            if not group["capturable"] or group["amsgrad"] \
+                    or group["maximize"] or group["decoupled_weight_decay"]:
+                raise ValueError("CapturableAdam: a capturable group with L2 "
+                                 "weight decay only")
+            b1, b2 = group["betas"]
+            wd, lr, eps = group["weight_decay"], group["lr"], group["eps"]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.zeros((), dtype=_scalar_dtype(),
+                                             device=p.device)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            steps = [st["step"] for st in states]
+            exp_avgs = [st["exp_avg"] for st in states]
+            exp_avg_sqs = [st["exp_avg_sq"] for st in states]
+            grads = [p.grad for p in params]
+            torch._foreach_add_(steps, 1)
+            if wd != 0:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+            torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
+            torch._foreach_mul_(exp_avg_sqs, b2)
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - b2)
+            # step_size = lr / (b1^t - 1), bc2_sqrt = sqrt(1 - b2^t): torch's
+            # sequence, on one count
+            step_size = torch.pow(b1, steps[0]).sub_(1).div_(lr).reciprocal_()
+            bc2_sqrt = torch.pow(b2, steps[0]).sub_(1).neg_().sqrt_()
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, bc2_sqrt)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_div_(denom, step_size)
+            torch._foreach_addcdiv_(params, exp_avgs, denom)
+        return None
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype of torch's Adam step counts."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 \
+        else torch.float32
+
+
 ENCODERS = ("encoder_imaging", "encoder_tabular")
 
 
@@ -170,8 +234,9 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
         return Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                     weight_decay=weight_decay, mu_dtype=dtype,
                     capturable=capturable)
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=weight_decay, capturable=capturable)
+    cls = CapturableAdam if capturable else torch.optim.Adam
+    opt = cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+              weight_decay=weight_decay, capturable=capturable)
     # the same instance runs eagerly and captured: torch's one-time
     # warning for a capturable optimizer stepped outside a capture does
     # not apply

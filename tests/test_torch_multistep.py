@@ -12,7 +12,11 @@ dispatch of 3 and a tail of 1, is held to the JAX package's steps in
 ``tests/test_torch_train_step.py``, with that file's JAX step compile
 (this file compiles no JAX step). The card
 tests (``gpu``) hold a graphed dispatch bitwise equal to eager steps at
-a small width and refuse a capture that syncs with the host.
+a small width for STiL and for every other family of the registry (and
+STiL's micro-batched step), with the BN counters advancing under replay;
+hold the port's capturable Adam to torch's on the card; and refuse a
+capture that syncs with the host or changes a number the state holds on
+the host.
 
 Sizes: ``resnet18`` on 32x32 images, batch 8 (2 labelled + 6
 unlabelled), 8 labelled and 24 unlabelled rows: 4 steps an epoch, one
@@ -230,8 +234,8 @@ def test_host_stream_epoch_blocks_stack_the_epoch_batches():
 
 
 def test_fixmatch_family_spd3_equals_spd1_bitwise(tmp_path):
-    """FreeMatch's step is not captured: at K = 3 its block runs eagerly,
-    bitwise its single steps (one epoch: a block of 3 and a tail of 1)."""
+    """On the CPU FreeMatch's block of K = 3 runs eagerly, bitwise its
+    single steps (one epoch: a block of 3 and a tail of 1)."""
     single, _, _ = _train("config_dvm_FreeMatch", 1, tmp_path / "1",
                           epochs=1)
     multi, _, out = _train("config_dvm_FreeMatch", K, tmp_path / "3",
@@ -245,10 +249,10 @@ def test_fixmatch_family_spd3_equals_spd1_bitwise(tmp_path):
     ({}, "cuda", "graph"),
     ({"algorithm_name": "STiL_SAINT"}, "cuda", "graph"),
     ({"algorithm_name": "Supervised", "micro_batches": 2}, "cuda", "graph"),
-    ({"micro_batches": 2}, "cuda", "eager"),
+    ({"micro_batches": 2}, "cuda", "graph"),
     ({"teacher_int8": True}, "cuda", "eager"),
-    ({"algorithm_name": "SimMatch"}, "cuda", "eager"),
-    ({"algorithm_name": "CoTrain_Pseudo"}, "cuda", "eager"),
+    ({"algorithm_name": "SimMatch"}, "cuda", "graph"),
+    ({"algorithm_name": "CoTrain_Pseudo"}, "cuda", "graph"),
 ])
 def test_route_is_chosen_from_the_config(case, device, route):
     cfg = load_config("config_dvm_STiL", OVERRIDES)
@@ -375,17 +379,20 @@ CARD_OVERRIDES = [o for o in OVERRIDES if not o.startswith("batch_size")] + [
     "DA=true", "augmentation_rate=1.0", "corruption_rate=0.3"]
 
 
-def _card_run(graphed: bool, plant=None):
-    """Two dispatches of 3 STiL steps (epoch 0, then 1: the pseudo-label
-    gate turns on) from a seeded state on the card, graphed or eager;
-    returns the state, the dispatcher and the BN launches counted."""
+def _card_run(graphed: bool, plant=None, config: str = "config_dvm_STiL",
+              extra=()):
+    """Two dispatches of 3 steps of ``config`` (epoch 0, then 1: the
+    pseudo-label gate, or a family's gates, turn on) from a seeded state
+    on the card, graphed or eager; returns the state, the dispatcher and
+    the BN launches counted."""
     from stil_tta_torch.data.datasets import load_sources
     from stil_tta_torch.data.loader import DeviceCache
     from stil_tta_torch.ops.batch_norm import bn_bwd_reduce, bn_stats
-    cfg = load_config("config_dvm_STiL", CARD_OVERRIDES)
+    cfg = load_config(config, CARD_OVERRIDES + list(extra))
     src = load_sources(cfg)
     dev = torch.device("cuda")
-    algo = STiL(cfg, src["train_labelled"].field_lengths, device=dev)
+    algo = registry.get_algorithm(cfg.algorithm_name)(
+        cfg, src["train_labelled"].field_lengths, device=dev)
     caches = [DeviceCache(src[k], device=dev).as_dict()
               for k in ("train_labelled", "train_unlabelled")]
     torch.manual_seed(0)
@@ -473,3 +480,102 @@ def test_capture_of_a_host_sync_fails_on_card():
     with pytest.raises(RuntimeError):
         _card_run(True, plant=plant)
     assert torch.rand(2, device="cuda").shape == (2,)
+
+
+# each newly captured route at the card tests' width (ResNet-18: 20
+# BatchNorms): (config, overrides, (bn_stats, bn_bwd_reduce) a step)
+CARD_ROUTES = {
+    "SimMatch": ("config_dvm_SimMatch", ["K=16"], (20, 20)),
+    "CoMatch": ("config_dvm_CoMatch", ["K=32"], (40, 20)),
+    "FreeMatch": ("config_dvm_FreeMatch", [], (20, 20)),
+    "MultiSimMatch": ("config_dvm_MultiSimMatch", ["K=16"], (20, 20)),
+    "MultiCoMatch": ("config_dvm_MultiCoMatch", ["K=32"], (40, 20)),
+    "MultiFreeMatch": ("config_dvm_MultiFreeMatch", [], (20, 20)),
+    "MMatch": ("config_dvm_MMatch", [], (20, 20)),
+    "CoTrain_Pseudo": ("config_dvm_CoTrain", [], (20, 20)),
+    "CoTrain_Pseudo_SAINT": ("config_dvm_CoTrain_SAINT", [], (20, 20)),
+    "TabularEval": ("config_dvm_STiL", ["algorithm_name=TabularEval",
+                                        "eval_datatype=tabular"], (0, 0)),
+    "STiL m=4": ("config_dvm_STiL", ["micro_batches=4"], (80, 80)),
+    "CoMatch m=4": ("config_dvm_CoMatch", ["K=32", "micro_batches=4"],
+                    (160, 80)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(CARD_ROUTES))
+def test_every_family_s_graphed_dispatch_matches_eager_on_card(route):
+    """Each family of the registry (and the micro-batched steps of STiL
+    and CoMatch): the graphed dispatches end bitwise equal to six eager
+    steps (every state tensor, the queues' and banks' positions among
+    them, the generator), and the BN counters advance under replay as the
+    eager steps advance them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    config, extra, per_step = CARD_ROUTES[route]
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, _, n_eager = _card_run(False, config=config, extra=extra)
+        graphed, dispatch, n_graph = _card_run(True, config=config,
+                                               extra=extra)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    assert dispatch.route == "graph"
+    assert n_eager == n_graph == tuple(6 * n for n in per_step)
+    assert (dispatch.launches_per_replay["bn_stats.launches"],
+            dispatch.launches_per_replay["bn_bwd_reduce.launches"]) \
+        == per_step
+    te, tg = (multistep.state_tensors(s) for s in (eager, graphed))
+    assert set(te) == set(tg)
+    off = [k for k in te if not torch.equal(te[k], tg[k])]
+    assert not off, off[:10]
+    assert eager.step == graphed.step == 6
+    assert torch.equal(eager.generator.get_state(),
+                       graphed.generator.get_state())
+
+
+@pytest.mark.gpu
+def test_capture_of_a_host_number_change_fails_on_card():
+    """A step that moves a number the state holds on the host (here a
+    write position kept as an int, as the families kept theirs) cannot
+    be captured: a replay would not move it, so the dispatch raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def plant(step):
+        def counted(state, *args):
+            state.extra["host_ptr"] = state.extra.get("host_ptr", 0) + 1
+            return step(state, *args)
+        return counted
+
+    with pytest.raises(RuntimeError, match="host values"):
+        _card_run(True, plant=plant, config="config_dvm_FreeMatch")
+
+
+@pytest.mark.gpu
+def test_capturable_adam_matches_torch_s_on_card():
+    """300 steps of the port's :class:`CapturableAdam` and of
+    ``torch.optim.Adam(capturable=True)`` on the card from the same
+    parameters, gradients and learning-rate tensor, with weight decay:
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ps = [torch.nn.Parameter(torch.randn(n, generator=gen, device="cuda"))
+          for n in (5, 300, 7)]
+    qs = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    ours = optim.build_optimizer(ps, 1e-2, 1e-4, capturable=True)
+    theirs = torch.optim.Adam(qs, lr=torch.tensor(1e-2, device="cuda"),
+                              weight_decay=1e-4, capturable=True)
+    assert type(ours) is optim.CapturableAdam
+    for _ in range(300):
+        for p, q in zip(ps, qs):
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+            q.grad = p.grad.clone()
+        ours.step()
+        theirs.step()
+    for p, q in zip(ps, qs):
+        assert torch.equal(p, q)
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(ours.state[p][k], theirs.state[q][k]), k
