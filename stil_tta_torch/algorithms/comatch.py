@@ -48,6 +48,7 @@ from stil_tta_torch.models.layers import acc_dtype
 from stil_tta_torch.ops.batch_norm import running_stats_frozen
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -281,4 +282,5 @@ class CoMatch(MatchBase):
             state.step += 1
             return state
 
-        return step if m_micro == 1 else step_micro
+        return trace.traced("train.step",
+                            step if m_micro == 1 else step_micro)

@@ -24,6 +24,7 @@ from stil_tta_torch.algorithms.mmatch import MMatch
 from stil_tta_torch.losses.common import cross_entropy, soft_cross_entropy
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -158,7 +159,8 @@ class CoTrain(MMatch):
             state.step += 1
             return state
 
-        return step if m_micro == 1 else step_micro
+        return trace.traced("train.step",
+                            step if m_micro == 1 else step_micro)
 
 
 class CoTrainSAINT(CoTrain):

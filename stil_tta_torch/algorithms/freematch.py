@@ -28,6 +28,7 @@ from stil_tta_torch.losses.common import (cross_entropy, entropy_loss,
 from stil_tta_torch.models.layers import acc_dtype
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -195,4 +196,5 @@ class FreeMatch(MatchBase):
             state.step += 1
             return state
 
-        return step if m_micro == 1 else step_micro
+        return trace.traced("train.step",
+                            step if m_micro == 1 else step_micro)

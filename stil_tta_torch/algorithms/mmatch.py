@@ -40,6 +40,7 @@ from stil_tta_torch.models.backbones import SemiMultimodalBackbone
 from stil_tta_torch.models.layers import acc_dtype
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -270,7 +271,8 @@ class MMatch(MatchBase):
             state.step += 1
             return state
 
-        return step if m_micro == 1 else step_micro
+        return trace.traced("train.step",
+                            step if m_micro == 1 else step_micro)
 
     def make_eval_step(self):
         """The three-head eval step (``mmatch.py:112-127``): resize-only

@@ -49,6 +49,7 @@ from stil_tta_torch.ops.metrics import (AccuracyState, AUROCState,
                                         auroc_init, auroc_update)
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import multistep, optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -570,7 +571,8 @@ class STiL:
             state.step += 1
             return state
 
-        return step if m_micro == 1 else step_micro
+        return trace.traced("train.step",
+                            step if m_micro == 1 else step_micro)
 
     def epoch_end(self, state: STiLState) -> Tuple[STiLState, Dict]:
         """Prototype normalisation (``STiLModel.py:408-415``) and the

@@ -25,6 +25,7 @@ from stil_tta_torch.losses.common import cross_entropy
 from stil_tta_torch.ops.metrics import accuracy_update
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -89,4 +90,4 @@ class Supervised(STiL):
             state.step += 1
             return state
 
-        return step
+        return trace.traced("train.step", step)

@@ -28,6 +28,7 @@ from stil_tta_torch.models.tabular_transformer import (
 from stil_tta_torch.ops.metrics import accuracy_update
 from stil_tta_torch.parallel import sharded
 from stil_tta_torch.train import optim
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -124,7 +125,7 @@ class TabularEval(MatchBase):
             state.step += 1
             return state
 
-        return step
+        return trace.traced("train.step", step)
 
     def make_eval_step(self):
         """``tabular_eval.py:103-119``: the clean rows' probabilities and

@@ -23,9 +23,10 @@ rows get the gradients of every rank's queries), and dropout masks are
 drawn for the global shape and cut to the rank's rows
 (:func:`uniform_rows`).
 
-Each all-reduce and all-gather runs inside a profiler range named
-``dp.all_reduce`` or ``dp.all_gather``, so a profile of a step reads the
-host time spent in collectives, the waits included.
+Each all-reduce and all-gather runs inside a program span
+(``utils/trace.py``) named ``dp.all_reduce`` or ``dp.all_gather``, so a
+profile of a step reads the host time spent in collectives, the waits
+included.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from stil_tta_torch.parallel.mesh import Mesh, rank_rows
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -99,7 +101,7 @@ def _shard_of(mesh: Mesh, segments: Sequence[int], device) -> Shard:
 def all_reduce(mesh: Mesh, t: Tensor, op=dist.ReduceOp.SUM) -> Tensor:
     """``t`` reduced over every rank of ``mesh`` (its groups in turn), in
     place; ``t`` must be contiguous."""
-    with torch.profiler.record_function("dp.all_reduce"):
+    with trace.span("dp.all_reduce"):
         for group in mesh.groups:
             dist.all_reduce(t, op=op, group=group)
     return t
@@ -108,7 +110,7 @@ def all_reduce(mesh: Mesh, t: Tensor, op=dist.ReduceOp.SUM) -> Tensor:
 def _all_gather(mesh: Mesh, t: Tensor, dim: int) -> Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    with torch.profiler.record_function("dp.all_gather"):
+    with trace.span("dp.all_gather"):
         dist.all_gather(parts, t, group=mesh.group)
     return torch.cat(parts, dim)
 

@@ -57,6 +57,7 @@ from stil_tta_torch.data.loader import (VIRTUAL_CACHE_KEYS, CyclingEpochView,
                                         EpochSampler, HostStream,
                                         WeightedSampler)
 from stil_tta_torch.train.multistep import chunk_indices, make_dispatcher
+from stil_tta_torch.utils import trace
 
 
 def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
@@ -147,8 +148,10 @@ def run_validation(eval_step, cache: dict, batch_size: int,
     for bi, (idx, w) in enumerate(sampler.epoch()):
         if bi >= max_b:
             break
-        outs.append((eval_step(cache, torch.from_numpy(idx).to(device),
-                               torch.from_numpy(w).to(device)), w))
+        idx_d = torch.from_numpy(idx).to(device)
+        w_d = torch.from_numpy(w).to(device)
+        with trace.span("eval.batch"):
+            outs.append((eval_step(cache, idx_d, w_d), w))
     # the FixMatch families' eval steps give the multimodal head alone
     probs = {k: [] for k in ("m", "i", "t") if f"prob_{k}" in outs[0][0]}
     ys = []
@@ -166,19 +169,20 @@ def run_validation(eval_step, cache: dict, batch_size: int,
                 continue
             loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
             loss_counts[k] = loss_counts.get(k, 0) + 1
-    y = np.concatenate(ys)
-    metrics = compute_eval_metrics(np.concatenate(probs["m"]), y,
-                                   num_classes, prefix)
-    for k, stream in (("i", "imaging"), ("t", "tabular")):
-        if k not in probs:
-            continue
-        sub = compute_eval_metrics(np.concatenate(probs[k]), y, num_classes,
-                                   prefix)
-        metrics[f"{prefix}.acc_{stream}"] = sub[f"{prefix}.acc"]
-        metrics[f"{prefix}.auc_{stream}"] = sub[f"{prefix}.auc"]
-    if prefix == "eval.val":  # the reference logs val losses only
-        for k, v in loss_sums.items():
-            metrics[f"multimodal.val.{k}"] = v / max(loss_counts[k], 1)
+    with trace.span("eval.metrics"):
+        y = np.concatenate(ys)
+        metrics = compute_eval_metrics(np.concatenate(probs["m"]), y,
+                                       num_classes, prefix)
+        for k, stream in (("i", "imaging"), ("t", "tabular")):
+            if k not in probs:
+                continue
+            sub = compute_eval_metrics(np.concatenate(probs[k]), y,
+                                       num_classes, prefix)
+            metrics[f"{prefix}.acc_{stream}"] = sub[f"{prefix}.acc"]
+            metrics[f"{prefix}.auc_{stream}"] = sub[f"{prefix}.auc"]
+        if prefix == "eval.val":  # the reference logs val losses only
+            for k, v in loss_sums.items():
+                metrics[f"multimodal.val.{k}"] = v / max(loss_counts[k], 1)
     return metrics
 
 

@@ -44,6 +44,7 @@ from torch.utils import _pytree as pytree
 
 from stil_tta_torch.ops.batch_norm import BNTrain, bn_bwd_reduce, bn_stats
 from stil_tta_torch.parallel import collectives
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -262,8 +263,8 @@ class GraphedStep:
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+            with trace.suspended(), torch.cuda.graph(
+                    graph, stream=stream, capture_error_mode="thread_local"):
                 self.step(state, *args, epoch)
         except BaseException:
             _end_generator_capture(state.generator, stream)

@@ -34,6 +34,7 @@ from stil_tta_torch.train import optim
 from stil_tta_torch.train.optim import build_optimizer
 from stil_tta_torch.tta.tent import (bn_affine_only, head_logits, knob,
                                      tta_batches)
+from stil_tta_torch.utils import trace
 
 Tensor = torch.Tensor
 Batch = Tuple[Tensor, Tensor, Optional[Tensor]]
@@ -109,37 +110,39 @@ def eata_adapt(cfg, algo, cache: dict) -> Dict[str, int]:
         n_sel = torch.zeros((), dtype=torch.long, device=dev)
         for ep in range(int(knob(cfg.tta_steps, 1))):
             for images, tabular, missing in batches(seed=ep):
-                probs, ent = _entropies(logits_fn(images, tabular, missing))
-                reliable = ent < e_margin
-                # redundancy filter: cosine similarity of the prediction
-                # to the running mean of earlier selected predictions
-                pd = probs.detach()
-                cos = ((pd * probs_ema[None, :]).sum(-1)
-                       / (torch.linalg.norm(pd, dim=-1)
-                          * torch.linalg.norm(probs_ema) + 1e-12))
-                novel = torch.where(ema_valid, cos.abs() < d_margin, True)
-                sel = reliable & novel
-                w = eata_sample_weights(ent, e_margin, sel)
-                loss = torch.sum(ent * w) / sel.sum().clamp_min(1)
-                if fisher is not None:
-                    loss = loss + fisher_alpha * sum(
-                        torch.sum(f * (p - p0) ** 2)
-                        for f, p, p0 in zip(fisher, params, params0))
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                optim.step(opt)
-                # running mean of selected predictions (0.9/0.1 EMA, held
-                # when a batch selects nothing)
-                nsel = sel.sum()
-                batch_mean = ((pd * sel[:, None]).sum(0)
-                              / nsel.clamp_min(1))
-                new_ema = torch.where(ema_valid,
-                                      0.9 * probs_ema + 0.1 * batch_mean,
-                                      batch_mean)
-                probs_ema = torch.where(nsel > 0, new_ema, probs_ema)
-                ema_valid = ema_valid | (nsel > 0)
-                n_sel += nsel
-                steps += 1
+                with trace.span("tta.step"):
+                    probs, ent = _entropies(logits_fn(images, tabular,
+                                                      missing))
+                    reliable = ent < e_margin
+                    # redundancy filter: cosine similarity of the prediction
+                    # to the running mean of earlier selected predictions
+                    pd = probs.detach()
+                    cos = ((pd * probs_ema[None, :]).sum(-1)
+                           / (torch.linalg.norm(pd, dim=-1)
+                              * torch.linalg.norm(probs_ema) + 1e-12))
+                    novel = torch.where(ema_valid, cos.abs() < d_margin, True)
+                    sel = reliable & novel
+                    w = eata_sample_weights(ent, e_margin, sel)
+                    loss = torch.sum(ent * w) / sel.sum().clamp_min(1)
+                    if fisher is not None:
+                        loss = loss + fisher_alpha * sum(
+                            torch.sum(f * (p - p0) ** 2)
+                            for f, p, p0 in zip(fisher, params, params0))
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    optim.step(opt)
+                    # running mean of selected predictions (0.9/0.1 EMA, held
+                    # when a batch selects nothing)
+                    nsel = sel.sum()
+                    batch_mean = ((pd * sel[:, None]).sum(0)
+                                  / nsel.clamp_min(1))
+                    new_ema = torch.where(ema_valid,
+                                          0.9 * probs_ema + 0.1 * batch_mean,
+                                          batch_mean)
+                    probs_ema = torch.where(nsel > 0, new_ema, probs_ema)
+                    ema_valid = ema_valid | (nsel > 0)
+                    n_sel += nsel
+                    steps += 1
     return {"steps": steps, "selected": int(n_sel)}
 
 
@@ -163,45 +166,46 @@ def sar_adapt(cfg, algo, cache: dict) -> Dict[str, int]:
         ema_valid = False
         for ep in range(int(knob(cfg.tta_steps, 1))):
             for images, tabular, missing in batches(seed=ep):
-                # first step: ascend to the sharpness point along the
-                # gradient, normalised by its global norm
-                loss1, _, sel = filtered_entropy(images, tabular, missing)
-                g1 = torch.autograd.grad(loss1, params)
-                gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g1))
-                at = [p.detach().clone() for p in params]
-                with torch.no_grad():
-                    for p, g in zip(params, g1):
-                        p.add_(rho * g / (gnorm + 1e-12))
-                # second step: the gradient at the perturbed point,
-                # re-filtering on the perturbed entropies (SAR's
-                # filter_ids_2), applied at the unperturbed point
-                _, ent2, _ = filtered_entropy(images, tabular, missing)
-                sel2 = sel & (ent2 < e_margin)
-                loss2 = torch.sum(ent2 * sel2) / sel2.sum().clamp_min(1)
-                g2 = torch.autograd.grad(loss2, params)
-                with torch.no_grad():
-                    for p, a, g in zip(params, at, g2):
-                        p.copy_(a)
-                        p.grad = g
-                optim.step(opt)
-                steps += 1
-                # the EMA only tracks batches whose second filter selected
-                # something: an empty sel2 makes loss2 an artificial 0
-                n2 = int(sel2.sum())
-                selected += n2
-                loss2 = loss2.detach().float().cpu()
-                if bool(torch.isfinite(loss2)) and n2 > 0:
-                    ema_loss = (0.9 * ema_loss + 0.1 * loss2 if ema_valid
-                                else loss2)
-                    ema_valid = True
-                # model recovery (paper section 3.3): a collapsed model
-                # drives the smoothed loss towards zero
-                if ema_valid and float(ema_loss) < reset_constant:
+                with trace.span("tta.step"):
+                    # first step: ascend to the sharpness point along the
+                    # gradient, normalised by its global norm
+                    loss1, _, sel = filtered_entropy(images, tabular, missing)
+                    g1 = torch.autograd.grad(loss1, params)
+                    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g1))
+                    at = [p.detach().clone() for p in params]
                     with torch.no_grad():
-                        for p, p0 in zip(params, params0):
-                            p.copy_(p0)
-                    opt.state.clear()
-                    ema_loss = torch.zeros((), dtype=torch.float32)
-                    ema_valid = False
-                    resets += 1
+                        for p, g in zip(params, g1):
+                            p.add_(rho * g / (gnorm + 1e-12))
+                    # second step: the gradient at the perturbed point,
+                    # re-filtering on the perturbed entropies (SAR's
+                    # filter_ids_2), applied at the unperturbed point
+                    _, ent2, _ = filtered_entropy(images, tabular, missing)
+                    sel2 = sel & (ent2 < e_margin)
+                    loss2 = torch.sum(ent2 * sel2) / sel2.sum().clamp_min(1)
+                    g2 = torch.autograd.grad(loss2, params)
+                    with torch.no_grad():
+                        for p, a, g in zip(params, at, g2):
+                            p.copy_(a)
+                            p.grad = g
+                    optim.step(opt)
+                    steps += 1
+                    # the EMA only tracks batches whose second filter selected
+                    # something: an empty sel2 makes loss2 an artificial 0
+                    n2 = int(sel2.sum())
+                    selected += n2
+                    loss2 = loss2.detach().float().cpu()
+                    if bool(torch.isfinite(loss2)) and n2 > 0:
+                        ema_loss = (0.9 * ema_loss + 0.1 * loss2 if ema_valid
+                                    else loss2)
+                        ema_valid = True
+                    # model recovery (paper section 3.3): a collapsed model
+                    # drives the smoothed loss towards zero
+                    if ema_valid and float(ema_loss) < reset_constant:
+                        with torch.no_grad():
+                            for p, p0 in zip(params, params0):
+                                p.copy_(p0)
+                        opt.state.clear()
+                        ema_loss = torch.zeros((), dtype=torch.float32)
+                        ema_valid = False
+                        resets += 1
     return {"steps": steps, "selected": selected, "resets": resets}

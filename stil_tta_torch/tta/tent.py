@@ -41,6 +41,7 @@ from stil_tta_torch.data.loader import EpochSampler
 from stil_tta_torch.ops.batch_norm import BatchNorm2d, StatsFn, bn_stats
 from stil_tta_torch.train import optim
 from stil_tta_torch.train.optim import build_optimizer
+from stil_tta_torch.utils import trace
 
 STRATEGIES = ("tent", "bn_adapt", "eata", "sar")
 
@@ -207,10 +208,11 @@ def _tent_phase(cfg, algo, cache: dict) -> Dict[str, int]:
         for ep in range(steps):
             for images, tabular, missing in tta_batches(
                     cache, int(cfg.batch_size), seed=ep):
-                logits = head_logits(algo, images, tabular, missing)
-                loss = entropy(torch.softmax(logits, dim=1)).mean()
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                optim.step(opt)
+                with trace.span("tta.step"):
+                    logits = head_logits(algo, images, tabular, missing)
+                    loss = entropy(torch.softmax(logits, dim=1)).mean()
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    optim.step(opt)
                 n += 1
     return {"steps": n}

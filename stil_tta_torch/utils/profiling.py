@@ -2,7 +2,8 @@
 ``capture_attention`` and ``attention_gradients`` in
 ``stil_tta_tpu/utils/profiling.py`` (the reference's hooks,
 ``Transformer.py:48-61``). The JAX module's ``trace`` and ``StepTimer``
-are not ported: ``torch.profiler`` and CUDA events take their place.
+have their counterpart in ``utils/trace.py``: program spans at the
+port's layer boundaries, kept while a ``torch.profiler`` session runs.
 
 The port's modules hold their parameters, so neither function takes the
 JAX package's ``variables``.
